@@ -1,0 +1,34 @@
+"""Inputs for the port's tests, made with numpy from a seed.  Imports only
+the port, so the tests that run on the card (where the JAX package is not
+installed) can use it too."""
+import numpy as np
+
+from repro_torch.core.allocator import feasible_cores_per_layer
+
+RTOL = 1e-5
+
+
+def queues(rows, w, seed):
+    """Random FCFS queues (free0, release, dur) as float32 numpy arrays,
+    about a quarter of the items off the queue (d = 0, r = -1e30)."""
+    rng = np.random.default_rng(seed)
+    free0 = rng.uniform(0, 50, size=rows).astype(np.float32)
+    release = rng.uniform(0, 100, size=(rows, w)).astype(np.float32)
+    dur = rng.uniform(0, 10, size=(rows, w)).astype(np.float32)
+    off = rng.random((rows, w)) < 0.25
+    release[off] = -1e30
+    dur[off] = 0.0
+    return free0, release, dur
+
+
+def population(w, acc, k, seed=0, spread=False):
+    """`k` random feasible genomes; `spread` adds one all-on-one-core genome
+    per core (as the reference's fitness tests do)."""
+    rng = np.random.default_rng(seed)
+    feas = feasible_cores_per_layer(w, acc)
+    pop = [np.array([f[rng.integers(len(f))] for f in feas])
+           for _ in range(k)]
+    if spread:
+        for c in range(acc.n_cores):
+            pop.append(np.array([c if c in f else f[0] for f in feas]))
+    return np.stack(pop)

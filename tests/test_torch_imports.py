@@ -1,0 +1,70 @@
+"""The port stands alone: `repro_torch` and `chip_smoke.py` import neither
+`jax` nor anything of the JAX package `repro`."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+BLOCKED_RUN = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None        # any `import jax` now raises ImportError
+sys.modules["repro"] = None
+import torch
+torch.set_num_threads(2)
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+from repro_torch.configs.paper_workloads import squeezenet
+from repro_torch.core import explore
+from repro_torch.hw.catalog import mc_hetero
+r = explore(squeezenet(), mc_hetero(), ("tile", 32, 1), pop_size=16,
+            generations=4, prefilter=True, device="cpu")
+assert r.latency_cc > 0 and r.ga.prefilter_screened > 0
+assert sys.modules["jax"] is None and sys.modules["repro"] is None
+print(len(names), "modules")
+"""
+
+
+def _imported_roots(tree: ast.AST):
+    """(line, top-level module) of every import, including the string
+    arguments of `importlib.import_module` and `__import__`."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else \
+                getattr(fn, "id", None)
+            if name in ("import_module", "__import__") and node.args and \
+                    isinstance(node.args[0], ast.Constant) and \
+                    isinstance(node.args[0].value, str):
+                yield node.lineno, node.args[0].value.split(".")[0]
+
+
+def test_no_file_of_the_port_imports_jax_or_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
+           for f in files
+           for line, mod in _imported_roots(ast.parse(f.read_text()))
+           if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_runs_with_jax_and_repro_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", BLOCKED_RUN], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "modules" in out.stdout
