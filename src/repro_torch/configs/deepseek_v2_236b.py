@@ -1,0 +1,15 @@
+"""deepseek-v2-236b [moe+MLA]: 60L d_model=5120 128H vocab=102400,
+MLA kv_lora=512 (qk_nope=128, qk_rope=64, v=128), MoE: 2 shared + 160 routed
+top-6 experts d_ff_expert=1536, first layer dense (d_ff=12288).
+[arXiv:2405.04434]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="deepseek-v2-236b", family="moe",
+    n_layers=60, d_model=5120, n_heads=128, n_kv_heads=128, head_dim=128,
+    d_ff=1536, vocab=102400, mixer="mla", ffn="moe",
+    mla={"kv_lora": 512, "qk_nope": 128, "qk_rope": 64, "v_dim": 128},
+    moe={"n_routed": 160, "top_k": 6, "n_shared": 2, "d_ff_expert": 1536,
+         "first_dense_layers": 1, "d_ff_dense": 12288},
+    source="arXiv:2405.04434",
+)

@@ -19,6 +19,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 
@@ -102,3 +104,27 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {code})")
+
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # as the launchers read
+
+
+def dtype_code(what: str, t: torch.Tensor) -> int:
+    """The launchers' code of a tensor's type; raises for any other type."""
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None:
+        raise TypeError(f"{what} must be float32 or bfloat16, not {t.dtype}")
+    return code
+
+
+def one_device(**tensors: torch.Tensor) -> torch.device:
+    """The device all `tensors` lie on; raises when they lie on several."""
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on several devices: {devices}")
+    return devices.pop()
+
+
+def stream_of(device: torch.device) -> int:
+    """The current CUDA stream of `device`, as the launchers take it."""
+    return torch.cuda.current_stream(device).cuda_stream

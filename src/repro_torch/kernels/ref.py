@@ -3,8 +3,14 @@ kernel is held against, and what a wrapper runs on CPU tensors.
 
 The prefix ops keep the JAX package's shift-doubling order
 (`repro/kernels/ref.py`), so float32 sums associate as the reference's do.
+The attention and norm versions compute in float32 and return the input's
+type, as the reference's oracles do; the attention ones also take grouped
+KV heads (Hq = G * Hkv, query head h reads KV head h // G), which is the
+reference's function at G = 1.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -51,3 +57,44 @@ def serialize_prefix_ref(free0: torch.Tensor, release: torch.Tensor,
     run = torch.maximum(prefix_max(g), free0[..., None])
     fin = s + run
     return fin, fin[..., -1]
+
+
+def _grouped_scores(q, k):
+    """float32 scores of q (B, Hq, S, D) against k (B, Hkv, T, D), scaled by
+    1/sqrt(D), as (B, Hkv, G, S, T)."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    qg = q.float().reshape(B, Hkv, Hq // Hkv, S, D)
+    return torch.einsum("bhgsd,bhtd->bhgst", qg, k.float()) / math.sqrt(D)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True):
+    """q: (B,Hq,S,D); k,v: (B,Hkv,T,D) -> (B,Hq,S,D). Naive softmax
+    attention; the causal mask is the reference oracle's `tril(k=T-S)`."""
+    B, Hq, S, D = q.shape
+    T = k.shape[2]
+    s = _grouped_scores(q, k)
+    if causal:
+        mask = torch.ones(S, T, dtype=torch.bool, device=q.device).tril(T - S)
+        s = torch.where(mask, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgst,bhtd->bhgsd", p, v.float())
+    return out.reshape(B, Hq, S, v.shape[-1]).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, cur_len):
+    """q: (B,Hq,D); k,v: (B,Hkv,T,D); valid positions < cur_len."""
+    B, Hq, D = q.shape
+    T = k.shape[2]
+    s = _grouped_scores(q[:, :, None], k)[..., 0, :]        # (B,Hkv,G,T)
+    valid = torch.arange(T, device=q.device) < cur_len
+    s = torch.where(valid, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgt,bhtd->bhgd", p, v.float())
+    return out.reshape(B, Hq, v.shape[-1]).to(q.dtype)
+
+
+def rmsnorm_ref(x, scale, eps: float = 1e-5):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)

@@ -13,7 +13,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels.build import check, load_library
+from repro_torch.kernels.build import (check, load_library, one_device,
+                                       stream_of)
 from repro_torch.kernels.ref import serialize_prefix_ref
 
 
@@ -40,10 +41,7 @@ def serialize_prefix(free0: torch.Tensor, release: torch.Tensor,
             f"{tuple(release.shape)}, dur {tuple(dur.shape)}")
     if release.shape[-1] == 0:
         raise ValueError("serialize_prefix needs at least one item per row")
-    devices = {free0.device, release.device, dur.device}
-    if len(devices) != 1:
-        raise ValueError(f"inputs lie on several devices: {devices}")
-    device = release.device
+    device = one_device(free0=free0, release=release, dur=dur)
     if device.type == "cpu":
         return serialize_prefix_ref(free0, release, dur)
     if device.type != "cuda":
@@ -61,10 +59,9 @@ def serialize_prefix(free0: torch.Tensor, release: torch.Tensor,
         return fin, new_free
     lib = _library()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.repro_serialize_prefix_f32(
             free0.data_ptr(), release.data_ptr(), dur.data_ptr(),
-            fin.data_ptr(), new_free.data_ptr(), rows, w, stream)
+            fin.data_ptr(), new_free.data_ptr(), rows, w, stream_of(device))
     check(lib, code, "serialize_prefix")
     serialize_prefix.launches += 1
     return fin, new_free

@@ -1,0 +1,80 @@
+"""CLI serve entry point (batched requests through the port's token engine),
+with the flags of the JAX package's `repro/launch/serve.py` plus `--device`:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+      --smoke --requests 4 --max-new 16
+
+As in the reference, `--smoke` defaults to on (`action="store_true",
+default=True`), so the CLI always serves the reduced config; a full-width
+model is served through `ServeEngine` directly (see `chip_smoke.py`).
+`--simulate`, the analytic closed loop, is ROADMAP queue 1, item 4, and
+`--production-mesh` item 13: both raise until then.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def _run_engine(args):
+    import numpy as np
+
+    from repro_torch.configs import ARCHS, reduce_config
+    from repro_torch.models.module import init_from_specs
+    from repro_torch.models.zoo import build_param_specs
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = ARCHS[args.arch]
+    if args.smoke:
+        cfg = reduce_config(cfg)
+    params = init_from_specs(build_param_specs(cfg), 0, device=args.device)
+    engine = ServeEngine(cfg, params, batch_slots=args.batch_slots,
+                         max_len=args.prompt_len + args.max_new + 8,
+                         prompt_len=args.prompt_len, device=args.device)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(1, cfg.vocab, size=args.prompt_len),
+                    max_new_tokens=args.max_new)
+            for _ in range(args.requests)]
+    t0 = time.perf_counter()
+    engine.serve(reqs)
+    dt = time.perf_counter() - t0
+    total_tokens = sum(len(r.out_tokens) for r in reqs)
+    print(f"served {len(reqs)} requests, {total_tokens} tokens "
+          f"in {dt:.2f}s ({total_tokens / dt:.1f} tok/s on "
+          f"{engine.device}); peak occupancy {engine.max_active}/{engine.B}")
+    for i, r in enumerate(reqs):
+        print(f"req{i}: {r.out_tokens[:12]}...")
+    return reqs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--batch-slots", type=int, default=None,
+                    help="slot-pool size (default: --requests)")
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--simulate", action="store_true",
+                    help="analytic closed-loop simulator instead of the "
+                         "token engine")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' to run there)")
+    args = ap.parse_args(argv)
+    if args.batch_slots is None:
+        args.batch_slots = args.requests
+    if args.simulate:
+        raise NotImplementedError(
+            "--simulate (the analytic serving simulator) is not ported yet: "
+            "ROADMAP queue 1, item 4")
+    if args.production_mesh:
+        raise NotImplementedError(
+            "--production-mesh (a multi-device mesh) is not ported yet: "
+            "ROADMAP queue 1, item 13")
+    return _run_engine(args)
+
+
+if __name__ == "__main__":
+    main()

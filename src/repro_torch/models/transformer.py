@@ -1,0 +1,229 @@
+"""Decoder-only LM assembly, the dense part of the JAX package's
+`repro/models/transformer.py`: config-driven GQA mixer + GLU / GELU FFN,
+pre-norm residual blocks, the layer stack as a Python loop over the stacked
+parameters (views, no copies), and prefill / decode paths with per-layer
+caches written in place.
+
+The parameter specs cover every family, so that `ArchConfig.param_count`
+holds for all ten configs; running a family other than the dense GQA
+decoder raises `NotImplementedError` naming the ROADMAP item that ports it.
+`chunked_ce_loss` and the remat policies wait for training (item 12).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (gelu_mlp, gelu_mlp_specs, glu_mlp,
+                                       glu_mlp_specs, layernorm, moe_specs,
+                                       rmsnorm)
+from repro_torch.models.module import ParamSpec
+
+F32 = torch.float32
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for a configuration the port cannot run yet (the dense GQA
+    decoder: mixer gqa, ffn glu or gelu, rope or no rope, rms or ln norm)."""
+    if cfg.family == "encdec":
+        what, item = "the encoder-decoder (whisper)", 11
+    elif cfg.hybrid:
+        what, item = "the hybrid shared-attention stack (zamba2)", 11
+    elif cfg.mixer in ("rwkv6", "mamba2"):
+        what, item = f"the {cfg.mixer} mixer", 11
+    elif cfg.mixer == "mla":
+        what, item = "the MLA mixer", 9
+    elif cfg.ffn == "moe":
+        what, item = "the MoE FFN", 8
+    elif cfg.rope == "mrope":
+        what, item = "M-RoPE", 8
+    else:
+        for field, ok in (("mixer", ("gqa",)), ("ffn", ("glu", "gelu")),
+                          ("rope", ("rope", "none")), ("norm", ("rms", "ln"))):
+            if getattr(cfg, field) not in ok:
+                raise ValueError(f"{cfg.name}: unknown {field} "
+                                 f"{getattr(cfg, field)!r}")
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: {what} is not ported yet: ROADMAP queue 1, item {item}")
+
+
+# ---------------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------------
+
+def _norm_specs(cfg):
+    if cfg.norm == "ln":
+        return {"scale": ParamSpec((cfg.d_model,), cfg.dtype, (None,), init="ones"),
+                "bias": ParamSpec((cfg.d_model,), cfg.dtype, (None,), init="zeros")}
+    return {"scale": ParamSpec((cfg.d_model,), cfg.dtype, (None,), init="ones")}
+
+
+def _apply_norm(cfg, p, x, *, kernels: bool = False):
+    if cfg.norm == "ln":
+        return layernorm(x, p["scale"], p["bias"])
+    return rmsnorm(x, p["scale"], kernels=kernels)
+
+
+def mixer_specs(cfg: ArchConfig):
+    if cfg.mixer == "gqa":
+        return attn.gqa_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.head_dim, cfg.dtype)
+    if cfg.mixer == "mla":
+        m = cfg.mla
+        return attn.mla_specs(cfg.d_model, cfg.n_heads, m["qk_nope"],
+                              m["qk_rope"], m["v_dim"], m["kv_lora"], cfg.dtype)
+    if cfg.mixer == "rwkv6":
+        return rwkv_mod.rwkv6_specs(cfg.d_model, cfg.head_dim, cfg.d_ff,
+                                    cfg.dtype)
+    if cfg.mixer == "mamba2":
+        s = cfg.ssm
+        return ssm_mod.mamba2_specs(cfg.d_model, s["d_state"], s["headdim"],
+                                    s.get("expand", 2), cfg.dtype)
+    raise ValueError(cfg.mixer)
+
+
+def ffn_specs(cfg: ArchConfig, moe_layer: bool):
+    if cfg.ffn == "none" or cfg.mixer == "rwkv6":  # rwkv owns its channel mix
+        return {}
+    if cfg.ffn == "moe" and moe_layer:
+        m = cfg.moe
+        return moe_specs(cfg.d_model, m["d_ff_expert"], m["n_routed"],
+                         m["n_shared"], cfg.dtype)
+    if cfg.ffn == "gelu":
+        return gelu_mlp_specs(cfg.d_model, cfg.d_ff, cfg.dtype)
+    d_ff = cfg.d_ff if cfg.ffn != "moe" else cfg.moe.get("d_ff_dense", cfg.d_ff)
+    return glu_mlp_specs(cfg.d_model, d_ff, cfg.dtype)
+
+
+def layer_specs(cfg: ArchConfig, moe_layer: bool = False):
+    specs = {"ln1": _norm_specs(cfg), "mixer": mixer_specs(cfg)}
+    fs = ffn_specs(cfg, moe_layer)
+    if fs:
+        specs["ln2"] = _norm_specs(cfg)
+        specs["ffn"] = fs
+    return specs
+
+
+def shared_attn_specs(cfg: ArchConfig):
+    """Zamba2-style shared transformer block (attention + GLU)."""
+    return {
+        "ln1": _norm_specs(cfg),
+        "attn": attn.gqa_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, cfg.dtype),
+        "ln2": _norm_specs(cfg),
+        "ffn": glu_mlp_specs(cfg.d_model, cfg.d_ff, cfg.dtype),
+    }
+
+
+def rwkv_layer_specs(cfg: ArchConfig):
+    base = rwkv_mod.rwkv6_specs(cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.dtype)
+    return {"ln1": _norm_specs(cfg), "mixer": {"tm": base["tm"]},
+            "ln2": _norm_specs(cfg), "ffn": base["cm"]}
+
+
+# ---------------------------------------------------------------------------
+# single layer application
+# ---------------------------------------------------------------------------
+
+def apply_mixer(cfg: ArchConfig, p, x, positions, *, cache=None,
+                cur_len=None, kernels: bool = False):
+    """Returns (y, cache)."""
+    if cfg.mixer != "gqa":
+        check_supported(cfg)
+    return attn.gqa_attention(
+        p, x, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, rope=cfg.rope, rope_theta=cfg.rope_theta,
+        cache=cache, cur_len=cur_len, kernels=kernels)
+
+
+def apply_layer(cfg: ArchConfig, p, x, positions, *, cache=None,
+                cur_len=None, kernels: bool = False):
+    """Pre-norm residual block. Returns (x, cache)."""
+    h = _apply_norm(cfg, p["ln1"], x, kernels=kernels)
+    y, cache = apply_mixer(cfg, p["mixer"], h, positions, cache=cache,
+                           cur_len=cur_len, kernels=kernels)
+    x = x + y
+    if "ffn" in p:
+        h = _apply_norm(cfg, p["ln2"], x, kernels=kernels)
+        y = gelu_mlp(p["ffn"], h) if cfg.ffn == "gelu" else glu_mlp(p["ffn"], h)
+        x = x + y
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# full decoder forward
+# ---------------------------------------------------------------------------
+
+def _index(tree, i):
+    """Layer `i` of a stacked parameter or cache tree, as views."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _run_layers(cfg, stacked_params, x, positions, *, caches=None,
+                cur_len=None, kernels: bool = False):
+    """Apply a stacked layer group in order (the reference's `lax.scan`).
+    caches: tree stacked on axis 0, written in place, or None."""
+    n = stacked_params["ln1"]["scale"].shape[0]
+    for i in range(n):
+        cache_i = None if caches is None else _index(caches, i)
+        x, _ = apply_layer(cfg, _index(stacked_params, i), x, positions,
+                           cache=cache_i, cur_len=cur_len, kernels=kernels)
+    return x
+
+
+def resolve_kernels(kernels, device: torch.device) -> bool:
+    """`None` -> the CUDA kernels on the card, the plain math on the CPU.
+    `True` off the card raises."""
+    on_cuda = device.type == "cuda"
+    if kernels is None:
+        return on_cuda
+    if kernels and not on_cuda:
+        raise ValueError(f"kernels=True needs CUDA tensors, not {device}")
+    return bool(kernels)
+
+
+def decoder_forward(cfg: ArchConfig, params, tokens, *, positions=None,
+                    caches=None, cur_len=None, kernels=None):
+    """tokens: (B,S) int. caches: {"layers": stacked cache tree} or None,
+    written in place; cur_len: Python int or None.
+
+    Returns (hidden: (B,S,D), caches)."""
+    check_supported(cfg)
+    embed = params["embed"]
+    kernels = resolve_kernels(kernels, embed.device)
+    B, S = tokens.shape[:2]
+    if positions is None:
+        base = 0 if cur_len is None else cur_len
+        positions = base + torch.arange(S, device=embed.device)[None, :]
+        positions = positions.expand(B, S)
+    x = embed[tokens]
+    x = _run_layers(cfg, params["layers"], x, positions,
+                    caches=None if caches is None else caches["layers"],
+                    cur_len=cur_len, kernels=kernels)
+    x = _apply_norm(cfg, params["final_norm"], x, kernels=kernels)
+    return x, caches
+
+
+def logits_f32(x, head):
+    """``x`` (..., D) against ``head`` (V, D) -> float32 (..., V), as the
+    reference's `einsum(..., preferred_element_type=F32)`: bf16 operands,
+    float32 sums, no rounding of the output to bf16.  On the card one
+    product with float32 output (`torch.mm(..., out_dtype=)`); elsewhere
+    float32 operands, which hold bf16 values exactly."""
+    flat = x.reshape(-1, x.shape[-1])
+    if flat.is_cuda and flat.dtype == head.dtype == torch.bfloat16:
+        out = torch.mm(flat, head.t(), out_dtype=F32)
+    else:
+        out = flat.float() @ head.float().t()
+    return out.reshape(*x.shape[:-1], head.shape[0])
+
+
+def lm_head(cfg: ArchConfig, params, x):
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return logits_f32(x, head)

@@ -1,0 +1,120 @@
+"""Model zoo: ArchConfig -> param/cache specs + prefill / decode entry points
++ analytic MODEL_FLOPS, from the JAX package's `repro/models/zoo.py`.
+
+`prefill` and `decode_step` take `kernels`: `None` runs the hand-written
+CUDA kernels (rmsnorm, flash attention, decode attention) when the weights
+lie on the card and the plain model math on the CPU; `True` off the card
+raises; `False` runs the plain math on the card too, to compare the two.
+Caches are written in place. Training (`train_loss`) and `input_specs` wait
+for ROADMAP queue 1, item 12.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import encdec
+from repro_torch.models import transformer as tfm
+from repro_torch.models.module import ParamSpec, count_params, stack_specs
+
+
+# ---------------------------------------------------------------------------
+# parameter / cache specs
+# ---------------------------------------------------------------------------
+
+def build_param_specs(cfg: ArchConfig):
+    if cfg.family == "encdec":
+        return encdec.whisper_param_specs(cfg)
+    specs: dict[str, Any] = {
+        "embed": ParamSpec((cfg.vocab, cfg.d_model), cfg.dtype,
+                           ("vocab", None), scale=0.02),
+        "final_norm": tfm._norm_specs(cfg),
+    }
+    if cfg.mixer == "rwkv6":
+        specs["layers"] = stack_specs(tfm.rwkv_layer_specs(cfg), cfg.n_layers)
+    elif cfg.hybrid:
+        specs["layers"] = stack_specs(tfm.layer_specs(cfg), cfg.n_layers)
+        specs["shared_attn"] = tfm.shared_attn_specs(cfg)
+    elif cfg.ffn == "moe":
+        n_dense = cfg.moe.get("first_dense_layers", 0)
+        if n_dense:
+            specs["dense_layers"] = stack_specs(
+                tfm.layer_specs(cfg, moe_layer=False), n_dense)
+        specs["layers"] = stack_specs(
+            tfm.layer_specs(cfg, moe_layer=True), cfg.n_layers - n_dense)
+    else:
+        specs["layers"] = stack_specs(tfm.layer_specs(cfg), cfg.n_layers)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((cfg.vocab, cfg.d_model), cfg.dtype,
+                                     ("vocab", None), scale=0.02)
+    return specs
+
+
+def build_cache_specs(cfg: ArchConfig, batch: int, max_len: int):
+    """KV caches of the dense GQA decoder, stacked over layers."""
+    tfm.check_supported(cfg)
+    per_layer = attn.gqa_cache_specs(cfg, batch, max_len, cfg.dtype)
+    return {"layers": stack_specs(per_layer, cfg.n_layers)}
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def prefill(cfg: ArchConfig, params, batch, caches, *, kernels=None):
+    """Run the prompt, fill caches in place, return last-token float32
+    logits (B, V) + caches."""
+    x, caches = tfm.decoder_forward(cfg, params, batch["tokens"],
+                                    caches=caches, cur_len=0, kernels=kernels)
+    return tfm.lm_head(cfg, params, x[:, -1]), caches
+
+
+def decode_step(cfg: ArchConfig, params, tokens, caches, cur_len: int, *,
+                kv_seq_shard=False, kernels=None):
+    """One decode step. tokens: (B,1); cur_len: Python int, the number of
+    positions already in the cache.
+
+    Returns (float32 logits (B,V), caches written in place)."""
+    if kv_seq_shard:
+        raise NotImplementedError(
+            "kv_seq_shard (decode over a sequence-sharded cache) is not "
+            "ported yet: ROADMAP queue 1, item 13")
+    x, caches = tfm.decoder_forward(cfg, params, tokens, caches=caches,
+                                    cur_len=cur_len, kernels=kernels)
+    return tfm.lm_head(cfg, params, x[:, -1]), caches
+
+
+# ---------------------------------------------------------------------------
+# analytic FLOPs
+# ---------------------------------------------------------------------------
+
+def active_params(cfg: ArchConfig) -> int:
+    """Active parameters per token (MoE counts shared + top_k routed)."""
+    total = count_params(build_param_specs(cfg))
+    if cfg.ffn != "moe":
+        return total
+    m = cfg.moe
+    n_moe_layers = cfg.n_layers - m.get("first_dense_layers", 0)
+    per_expert = 3 * cfg.d_model * m["d_ff_expert"]
+    inactive = n_moe_layers * (m["n_routed"] - m["top_k"]) * per_expert
+    return total - inactive
+
+
+def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
+    """Analytic MODEL_FLOPS: 6*N_active*D (train) / 2*N_active*D (+attention
+    KV term) for inference shapes."""
+    n_act = active_params(cfg)
+    n_emb = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    n_body = n_act - n_emb + cfg.vocab * cfg.d_model  # head matmul is compute
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.mixer in ("gqa", "mla"):
+        attn_tr = 2 * B * S * S * cfg.n_heads * cfg.head_dim  # causal avg
+        attn_dec = 4 * B * S * cfg.n_heads * cfg.head_dim
+    else:
+        attn_tr = attn_dec = 0.0
+    if shape.kind == "train":
+        return 6.0 * n_body * B * S + 3.0 * attn_tr
+    if shape.kind == "prefill":
+        return 2.0 * n_body * B * S + attn_tr
+    return 2.0 * n_body * B + attn_dec

@@ -6,6 +6,16 @@ import numpy as np
 from repro_torch.core.allocator import feasible_cores_per_layer
 
 RTOL = 1e-5
+# kernel-vs-plain tolerances of the reference's kernel tests
+# (tests/test_kernels.py:17-19): float32 2e-5, bfloat16 2e-2
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def normal(shape, seed, scale=1.0):
+    """Standard normals times `scale`, float32, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
 
 
 def queues(rows, w, seed):

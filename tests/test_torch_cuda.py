@@ -8,14 +8,23 @@ machine with a card:
 import numpy as np
 import pytest
 import torch
-from _torch_inputs import RTOL, population, queues
+from _torch_inputs import RTOL, TOL, normal, population, queues
 
 from repro_torch.api.session import ExplorationSession
+from repro_torch.configs import ARCHS, reduce_config
 from repro_torch.configs.paper_workloads import squeezenet
 from repro_torch.core.vectorized import BatchedFitness
 from repro_torch.hw.catalog import mc_hetero, mc_hom_tpu_chip4
-from repro_torch.kernels.ref import serialize_prefix_ref
+from repro_torch.kernels.decode_attention import decode_attention_fwd
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.ref import (decode_attention_ref,
+                                     flash_attention_ref, rmsnorm_ref,
+                                     serialize_prefix_ref)
+from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch.kernels.wavefront import serialize_prefix
+from repro_torch.models import zoo
+from repro_torch.models.module import init_from_specs
+from repro_torch.models.transformer import logits_f32
 
 pytestmark = pytest.mark.cuda
 
@@ -70,3 +79,125 @@ def test_fitness_kernel_path_matches_plain_and_cpu(cuda, arch):
                          contention="serialize").scores(pop)
     np.testing.assert_allclose(s_k, s_p, rtol=RTOL)
     np.testing.assert_allclose(s_k, s_c, rtol=RTOL)
+
+
+# ---- the serving kernels: rmsnorm, decode attention, flash attention -------
+
+def _on(cuda, a, dtype):
+    return torch.as_tensor(a, device=cuda).to(getattr(torch, dtype))
+
+
+def _close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(4, 37, 96), (2, 8, 128), (1, 300, 64),
+                                   (4, 1, 3072), (4, 128, 3072)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, scale_dtype):
+    x = _on(cuda, normal(shape, 0), dtype)
+    s = _on(cuda, normal(shape[-1:], 1), scale_dtype)
+    before = rmsnorm_fwd.launches
+    got = rmsnorm_fwd(x, s)
+    assert rmsnorm_fwd.launches == before + 1 and got.dtype == x.dtype
+    _close(got, rmsnorm_ref(x, s), dtype)
+
+
+def _kv(cuda, layout, B, Hkv, T, D, dtype, seed):
+    """k and v as (B, Hkv, T, D) tensors: contiguous in the TPU kernel's
+    layout, or transposed views of the model's (B, T, Hkv, D) cache."""
+    out = []
+    for i in range(2):
+        a = normal((B, T, Hkv, D) if layout == "model" else (B, Hkv, T, D),
+                   seed + i)
+        t = _on(cuda, a, dtype)
+        out.append(t.transpose(1, 2) if layout == "model" else t)
+    return out
+
+
+@pytest.mark.parametrize("layout,Hq,Hkv", [("tpu", 4, 4), ("model", 24, 8)])
+@pytest.mark.parametrize("B,T,D", [(4, 168, 128), (2, 200, 64),
+                                   (3, 64, 32)])
+@pytest.mark.parametrize("cur", ["one", "mid", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_kernel_matches_plain(cuda, layout, Hq, Hkv, B, T,
+                                               D, cur, dtype):
+    cur_len = {"one": 1, "mid": 100 if T > 100 else T // 2, "full": T}[cur]
+    q = _on(cuda, normal((B, Hq, D), 7), dtype)
+    k, v = _kv(cuda, layout, B, Hkv, T, D, dtype, 8)
+    before = decode_attention_fwd.launches
+    got = decode_attention_fwd(q, k, v, cur_len)
+    assert decode_attention_fwd.launches == before + 1
+    _close(got, decode_attention_ref(q, k, v, cur_len), dtype)
+
+
+@pytest.mark.parametrize("layout,Hq,Hkv", [("tpu", 3, 3), ("model", 24, 8)])
+@pytest.mark.parametrize("B,S,D", [(4, 128, 128), (1, 40, 16), (2, 96, 64),
+                                   (1, 200, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(cuda, layout, Hq, Hkv, B, S, D,
+                                              causal, dtype):
+    qa = normal((B, S, Hq, D) if layout == "model" else (B, Hq, S, D), 3)
+    q = _on(cuda, qa, dtype)
+    q = q.transpose(1, 2) if layout == "model" else q
+    k, v = _kv(cuda, layout, B, Hkv, S, D, dtype, 4)
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, causal=causal)
+    assert flash_attention_fwd.launches == before + 1
+    assert got.stride() == q.stride()
+    _close(got, flash_attention_ref(q, k, v, causal=causal), dtype)
+
+
+def test_serving_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.ones(4, 8, device=cuda)
+    with pytest.raises(TypeError):
+        rmsnorm_fwd(x.double(), torch.ones(8, device=cuda))
+    with pytest.raises(ValueError):
+        rmsnorm_fwd(x.t(), torch.ones(4, device=cuda))
+    q = torch.ones(1, 2, 8, 16, device=cuda)
+    with pytest.raises(ValueError):          # causal needs S == T
+        flash_attention_fwd(q, q[:, :, :4], q[:, :, :4])
+    with pytest.raises(ValueError):          # D must be contiguous
+        flash_attention_fwd(q.transpose(2, 3), q.transpose(2, 3),
+                            q.transpose(2, 3), causal=False)
+    with pytest.raises(TypeError):
+        decode_attention_fwd(q[:, :, 0].half(), q, q, 3)
+
+
+# ---- the serving path on the card ------------------------------------------
+
+def test_logits_f32_on_the_card_equal_float32_operands(cuda):
+    x = _on(cuda, normal((4, 256), 11), "bfloat16")
+    head = _on(cuda, normal((1000, 256), 12, 0.02), "bfloat16")
+    got = logits_f32(x, head)
+    assert got.dtype == torch.float32
+    # bf16 products are exact in float32; only the order of sums differs
+    torch.testing.assert_close(got, x.float() @ head.float().t(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-34b"])
+def test_reduced_decoder_kernel_path_matches_plain_path(cuda, arch):
+    cfg = reduce_config(ARCHS[arch])
+    params = init_from_specs(zoo.build_param_specs(cfg), 0, device=cuda)
+    toks = torch.as_tensor(normal((2, 24), 13) > 0, device=cuda).long() + 5
+    out = {}
+    for name, kernels in (("kernels", None), ("plain", False)):
+        caches = init_from_specs(zoo.build_cache_specs(cfg, 2, 32), 0,
+                                 device=cuda)
+        before = (rmsnorm_fwd.launches, flash_attention_fwd.launches,
+                  decode_attention_fwd.launches)
+        pre, caches = zoo.prefill(cfg, params, {"tokens": toks}, caches,
+                                  kernels=kernels)
+        dec, _ = zoo.decode_step(cfg, params, pre.argmax(-1)[:, None],
+                                 caches, 24, kernels=kernels)
+        after = (rmsnorm_fwd.launches, flash_attention_fwd.launches,
+                 decode_attention_fwd.launches)
+        n = cfg.n_layers
+        assert [a - b for a, b in zip(after, before)] == (
+            [2 * (2 * n + 1), n, n] if kernels is None else [0, 0, 0])
+        out[name] = (pre, dec)
+    for got, want in zip(out["kernels"], out["plain"]):
+        _close(got, want, "bfloat16")

@@ -1,5 +1,7 @@
 """The port stands alone: `repro_torch` and `chip_smoke.py` import neither
-`jax` nor anything of the JAX package `repro`."""
+`jax` nor anything of the JAX package `repro`.  With both blocked, every
+module of the port imports, `explore(prefilter=True)` runs and a tiny
+`ServeEngine` serves on the CPU."""
 import ast
 import os
 import subprocess
@@ -27,6 +29,19 @@ from repro_torch.hw.catalog import mc_hetero
 r = explore(squeezenet(), mc_hetero(), ("tile", 32, 1), pop_size=16,
             generations=4, prefilter=True, device="cpu")
 assert r.latency_cc > 0 and r.ga.prefilter_screened > 0
+import numpy as np
+from repro_torch.configs import ARCHS, reduce_config
+from repro_torch.models.module import init_from_specs
+from repro_torch.models.zoo import build_param_specs
+from repro_torch.serve.engine import Request, ServeEngine
+cfg = reduce_config(ARCHS["llama3.2-3b"], n_layers=1, d_model=64, d_ff=128,
+                    vocab=128)
+params = init_from_specs(build_param_specs(cfg), 0, device="cpu")
+engine = ServeEngine(cfg, params, batch_slots=2, max_len=12, prompt_len=8,
+                     device="cpu")
+reqs = engine.run([Request(prompt=np.arange(1, 9), max_new_tokens=3)
+                   for _ in range(2)])
+assert all(len(r.out_tokens) == 3 for r in reqs)
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 print(len(names), "modules")
 """

@@ -1,0 +1,159 @@
+"""The port's configs and dense decoder (`repro_torch.configs`,
+`repro_torch.models`) against the JAX package's, on weights initialised in
+the reference and carried across with `repro_torch.interop`.
+
+Reduced llama3.2-3b (GQA, GLU, RMSNorm) and granite-34b (MQA, GELU MLP)
+run `decoder_forward`, `prefill` and two `decode_step`s.  Tolerances:
+float32 variants at 2e-5 (the same float32 arithmetic, sums in another
+order); bfloat16 at 2e-2 (the reference's bf16 kernel tolerance: the two
+frameworks round bf16 activations at slightly different places, one bf16
+ulp each, and the residual stream carries them through two layers).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_inputs import TOL
+
+from repro.configs import ARCHS as REF_ARCHS
+from repro.configs import SHAPES as REF_SHAPES
+from repro.configs import reduce_config as ref_reduce
+from repro.launch.mesh import compat_make_mesh, compat_set_mesh
+from repro.models import transformer as ref_tfm
+from repro.models import zoo as ref_zoo
+from repro.models.module import count_params as ref_count
+from repro.models.module import init_from_specs as ref_init
+from repro.models.module import param_bytes as ref_bytes
+
+from repro_torch.configs import ARCHS, SHAPES, reduce_config
+from repro_torch.interop import arch_config_from_dict, params_from_numpy
+from repro_torch.models import transformer as tfm
+from repro_torch.models import zoo
+from repro_torch.models.module import (ParamSpec, count_params,
+                                       init_from_specs, param_bytes)
+
+B, S, MAX_LEN = 2, 12, 20
+DENSE = ["llama3.2-3b", "granite-34b"]
+UNSUPPORTED = ["whisper-large-v3", "rwkv6-3b", "zamba2-2.7b", "qwen2-vl-72b",
+               "deepseek-moe-16b", "deepseek-v2-236b"]
+
+
+@pytest.mark.parametrize("name", sorted(REF_ARCHS))
+def test_arch_configs_equal_the_reference(name):
+    ref = REF_ARCHS[name]
+    assert arch_config_from_dict(dataclasses.asdict(ref)) == ARCHS[name]
+    small = ref_reduce(ref)
+    assert arch_config_from_dict(dataclasses.asdict(small)) == \
+        reduce_config(ARCHS[name])
+
+
+@pytest.mark.parametrize("name", sorted(REF_ARCHS))
+def test_param_counts_bytes_and_flops_equal_the_reference(name):
+    ref_specs = ref_zoo.build_param_specs(REF_ARCHS[name])
+    specs = zoo.build_param_specs(ARCHS[name])
+    assert count_params(specs) == ref_count(ref_specs) == \
+        ARCHS[name].param_count()
+    assert param_bytes(specs) == ref_bytes(ref_specs)
+    assert zoo.active_params(ARCHS[name]) == \
+        ref_zoo.active_params(REF_ARCHS[name])
+    for shape in SHAPES:
+        assert zoo.model_flops(ARCHS[name], SHAPES[shape]) == \
+            ref_zoo.model_flops(REF_ARCHS[name], REF_SHAPES[shape])
+
+
+def test_init_from_specs_keeps_the_reference_distribution():
+    specs = {"w": ParamSpec((64, 256), torch.float32),
+             "e": ParamSpec((256, 16), torch.float32, scale=0.02),
+             "z": ParamSpec((8,), torch.bfloat16, init="zeros"),
+             "o": ParamSpec((8,), torch.bfloat16, init="ones")}
+    p = init_from_specs(specs, 0, device="cpu")
+    again = init_from_specs(specs, torch.Generator().manual_seed(0),
+                            device="cpu")
+    assert all(torch.equal(p[k], again[k]) for k in specs)
+    assert abs(float(p["w"].std()) - 1 / 8) < 0.01       # 1/sqrt(fan_in)
+    assert abs(float(p["e"].std()) - 0.02) < 0.002
+    assert torch.equal(p["z"], torch.zeros(8, dtype=torch.bfloat16))
+    assert torch.equal(p["o"], torch.ones(8, dtype=torch.bfloat16))
+
+
+def _variant(name, dtype):
+    rc = dataclasses.replace(ref_reduce(REF_ARCHS[name]), dtype=dtype)
+    return rc, arch_config_from_dict(dataclasses.asdict(rc))
+
+
+@pytest.fixture(scope="module", params=[(n, d) for n in DENSE
+                                        for d in ("float32", "bfloat16")],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def run(request):
+    """Both packages' outputs on one reduced config: the cacheless forward,
+    the prefill logits and two decode steps, fed the reference's tokens."""
+    name, dtype = request.param
+    rc, pc = _variant(name, getattr(jnp, dtype))
+    rparams = ref_init(ref_zoo.build_param_specs(rc), jax.random.PRNGKey(0))
+    params = params_from_numpy(jax.tree.map(np.asarray, rparams), "cpu")
+    toks = np.random.default_rng(0).integers(1, rc.vocab, size=(B, S))
+    mesh = compat_make_mesh((1, 1), ("data", "model"))
+    ref, port = {}, {}
+    with compat_set_mesh(mesh):
+        ref["hidden"], _, _ = ref_tfm.decoder_forward(
+            rc, rparams, jnp.asarray(toks, jnp.int32), mesh=mesh)
+        caches = ref_init(ref_zoo.build_cache_specs(rc, B, MAX_LEN),
+                          jax.random.PRNGKey(0))
+        ref["prefill"], caches = ref_zoo.prefill(
+            rc, rparams, {"tokens": jnp.asarray(toks, jnp.int32)}, caches,
+            mesh=mesh)
+        tok = jnp.argmax(ref["prefill"], -1).astype(jnp.int32)
+        steps = [np.array(tok)]
+        for i in range(2):
+            ref[f"decode{i}"], caches = ref_zoo.decode_step(
+                rc, rparams, tok[:, None], caches, jnp.int32(S + i),
+                mesh=mesh)
+            tok = jnp.argmax(ref[f"decode{i}"], -1).astype(jnp.int32)
+            steps.append(np.array(tok))
+    port["hidden"], none = tfm.decoder_forward(pc, params,
+                                               torch.as_tensor(toks))
+    assert none is None
+    caches = init_from_specs(zoo.build_cache_specs(pc, B, MAX_LEN), 0,
+                             device="cpu")
+    port["prefill"], caches = zoo.prefill(
+        pc, params, {"tokens": torch.as_tensor(toks)}, caches)
+    for i in range(2):
+        port[f"decode{i}"], caches = zoo.decode_step(
+            pc, params, torch.as_tensor(steps[i]).long()[:, None], caches,
+            S + i)
+    return dtype, ref, port
+
+
+@pytest.mark.parametrize("what", ["hidden", "prefill", "decode0", "decode1"])
+def test_dense_decoder_matches_the_reference(run, what):
+    dtype, ref, port = run
+    got, want = port[what], np.asarray(ref[what], np.float32)
+    if what != "hidden":
+        assert got.dtype == torch.float32      # logits are float32
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("name", UNSUPPORTED)
+def test_unsupported_families_raise_naming_the_roadmap(name):
+    cfg = reduce_config(ARCHS[name])
+    toks = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
+        zoo.prefill(cfg, {}, {"tokens": toks}, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
+        zoo.build_cache_specs(cfg, 1, 8)
+
+
+def test_kv_seq_shard_and_kernels_off_the_card_raise():
+    cfg = reduce_config(ARCHS["llama3.2-3b"])
+    params = init_from_specs(zoo.build_param_specs(cfg), 0, device="cpu")
+    caches = init_from_specs(zoo.build_cache_specs(cfg, 1, 8), 0,
+                             device="cpu")
+    tok = torch.zeros(1, 1, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        zoo.decode_step(cfg, params, tok, caches, 0, kv_seq_shard=True)
+    with pytest.raises(ValueError, match="kernels=True"):
+        zoo.decode_step(cfg, params, tok, caches, 0, kernels=True)
