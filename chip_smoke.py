@@ -9,17 +9,22 @@ non-zero and prints no `ok` line:
 2. build   — every kernel under src/repro_torch/kernels/csrc, one nvcc per
              source, all started together, with ptxas' registers and spills;
 3. kernel  — each kernel against its plain PyTorch version on the card
-             (serialize_prefix, rmsnorm, decode_attention, flash_attention),
-             with its times at the main path's shapes, its bound and the
-             time of one PyTorch call computing the same function;
+             (serialize_prefix, rmsnorm, decode_attention, flash_attention,
+             ssd_scan, rwkv6_scan, moe_gemm), with its times at the main
+             paths' shapes, its bound and the time of one PyTorch call
+             computing the same function;
 4. fitness — BatchedFitness on the card, kernel path against the plain path
              and against the CPU, launch counts, genomes/s, kernel times;
 5. explore — Stream's explore(prefilter=True) on the card, the DSE main
              path, with every launch count set to 0 just before it;
-6. serve   — llama3.2-3b at full width (seeded random weights on the card)
-             through ServeEngine.serve, the serving main path, with every
-             launch count set to 0 just before it; then the kernel path
-             against the plain path (kernels=False) on the same weights.
+6. serve   — llama3.2-3b, zamba2-2.7b, rwkv6-3b and deepseek-moe-16b,
+             one after another, each at full width (seeded random weights
+             on the card) through ServeEngine.serve, a serving main path
+             each, with every launch count set to 0 just before it; then
+             the kernel path against the plain path (kernels=False) on the
+             same weights, and the model freed before the next; for the
+             three of them with scans or expert GEMMs, the two paths again
+             on float32 weights at full width and depth.
 
 Then a line `{"kernels": [...]}`, the `nvidia-smi` name and power limit, and
 last `{"ok": true, "device": {...}}`.  Exits non-zero without CUDA.
@@ -46,20 +51,36 @@ BF16_OPS_PER_S = 989e12          # H100 SXM data sheet, dense bf16 tensor
 # (tests/test_kernels.py:17-19)
 SERVE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
-# The serving main path: llama3.2-3b at full width under
-# ServeEngine(batch_slots=4, prompt_len=128, max_len=168), 8 requests of
-# 32 new tokens, so two FIFO waves of one prefill and 31 decode steps.
-ARCH = "llama3.2-3b"
-SLOTS, PROMPT, MAX_LEN, NEW, N_REQ = 4, 128, 168, 32, 8
+# The serving main paths: each model at full width under
+# ServeEngine(batch_slots=4, prompt_len=128, max_len=168), 8 requests, so
+# two FIFO waves of one prefill and NEW - 1 decode steps each.
+SLOTS, PROMPT, MAX_LEN, N_REQ = 4, 128, 168, 8
 WAVES = N_REQ // SLOTS
-DECODE_STEPS = WAVES * (NEW - 1)
-# the middle of a wave's decode steps, which attend over 129..159 positions
-SERVE_CUR = PROMPT + NEW // 2
-# the plain path's prefill logits may differ from the kernel path's by the
-# kernels' documented roundings (p in float32, one rounding of the norm)
-# carried through 28 layers: 0.0506 measured on an H100 (see PERF.md),
-# so the limit is about twice that
-LOGITS_TOL = 0.1
+# model -> (new tokens per request, bf16 prefill logits limit of the kernel
+# path against the plain path). The kernels round in other places than the
+# plain layers (p in float32, one rounding of the norm, float32 scans and
+# expert sums, each output rounded once to bf16), and through a deep stack
+# of random weights those one-ulp differences compound. Each limit is about
+# twice the difference measured on an H100 (see PERF.md): llama3.2-3b
+# 0.0506, zamba2-2.7b 0.113, rwkv6-3b 0.567, deepseek-moe-16b 0.0374, with
+# logits up to 4.4-8.3 in magnitude. For llama3.2-3b this bf16 comparison
+# is the gate, and at least one first token must be clear of a near tie.
+# For the three models of F32_CHECK it is a report: at such limits, and
+# with top-1 margins of a few tenths, it could pass a wrong kernel (rwkv6-3b
+# compares no first token). Their gate is the float32 check below, with
+# each kernel held alone at its serving shape in bf16 in the kernel phase.
+SERVED = {"llama3.2-3b": (32, 0.1), "zamba2-2.7b": (16, 0.25),
+          "rwkv6-3b": (16, 1.2), "deepseek-moe-16b": (16, 0.1)}
+# The gate of the scan and expert paths: the same comparison at full width
+# and depth in float32, where no bf16 rounding feeds the divergence. The
+# kernel path sums float32 in another order than the plain path: 6.1e-6
+# (deepseek-moe-16b) to 1.2e-4 (rwkv6-3b) measured on an H100, with logits
+# up to 4.8, so the limit is 1e-3.
+F32_CHECK = ("zamba2-2.7b", "rwkv6-3b", "deepseek-moe-16b")
+F32_LOGITS_TOL = 1e-3
+# the middle of a wave's decode steps of llama3.2-3b, which attend over
+# 129..159 positions
+SERVE_CUR = PROMPT + SERVED["llama3.2-3b"][0] // 2
 KERNEL_SHAPES = [(1, 1), (5, 7), (1280, 17), (2048, 28), (40, 33), (300, 257),
                  (160, 17), (32, 17)]
 TIMED_SHAPES = [(1280, 17), (2048, 28)]
@@ -178,30 +199,41 @@ def tensor(rng, shape, dtype, dev):
     return torch.as_tensor(a, device=dev).to(getattr(torch, dtype))
 
 
-def held(got, want, dtype) -> float:
-    """Max abs error of a kernel's output against its plain version; raises
-    beyond the reference's kernel tolerance."""
+def held_tol(got, want, tol: float) -> float:
+    """Max abs error of `got` against `want`; raises beyond rtol = atol =
+    `tol`."""
     import torch
-    tol = SERVE_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     return float((got.float() - want.float()).abs().max())
 
 
-def bound(n_bytes: float, n_ops: float, ops_per_s: float):
+def held(got, want, dtype) -> float:
+    """Max abs error of a kernel's output against its plain version; raises
+    beyond the reference's kernel tolerance."""
+    return held_tol(got, want, SERVE_TOL[dtype])
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s: float,
+          bf16_ops: float = 0.0):
     """The least time for the work, ms: bytes over the memory rate or
-    operations over the peak rate for their type, whichever is larger."""
+    operations over the peak rate for their type (`n_ops` at `ops_per_s`
+    plus `bf16_ops` products at the bf16 tensor rate), whichever is
+    larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
+    t_ops = (n_ops / ops_per_s + bf16_ops / BF16_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timed(kern, plain, library, name: str, work) -> dict:
+def timed(kern, plain, library, name: str, work, plain_iters: int = 200,
+          iters: int = 200) -> dict:
     """Events ms of the kernel's wrapper, the profiler's device ms of its
-    kernel, the plain version's and the library call's events ms, and the
-    bound of the work."""
+    kernel, the plain version's and the library call's events ms (None
+    where no single PyTorch call computes the function), and the bound of
+    the work."""
     b = bound(*work)
-    return {"ms": cuda_ms(kern), "device_ms": kernel_device_ms(kern, name),
-            "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
+    return {"ms": cuda_ms(kern, iters), "device_ms": kernel_device_ms(kern, name),
+            "plain_ms": cuda_ms(plain, plain_iters, max(plain_iters // 10, 1)),
+            "library_ms": None if library is None else cuda_ms(library),
             "bound_ms": b[0], "bound_by": b[1]}
 
 
@@ -253,7 +285,8 @@ def check_decode_attention(dev) -> dict:
     rng = np.random.default_rng(3)
     errs = {}
     for layout, hq, hkv in (("tpu", 8, 8), ("model", 24, 8)):
-        for B, T, D in ((SLOTS, MAX_LEN, 128), (2, 200, 64), (3, 64, 128)):
+        for B, T, D in ((SLOTS, MAX_LEN, 128), (2, 200, 64), (3, 64, 128),
+                        (SLOTS, MAX_LEN, 80)):
             for cur in (1, 100, T):
                 for dtype in ("float32", "bfloat16"):
                     q = tensor(rng, (B, hq, D), dtype, dev)
@@ -275,7 +308,24 @@ def check_decode_attention(dev) -> dict:
     t["max_abs_err"] = held(decode_attention_fwd(q, k, v, SERVE_CUR),
                             decode_attention_ref(q, k, v, SERVE_CUR),
                             "bfloat16")
-    return {"errors": errs, "main": t,
+    # zamba2-2.7b's shared block: 32 heads over 32 KV heads, D = 80, the
+    # middle of a wave's decode steps
+    cur = PROMPT + SERVED["zamba2-2.7b"][0] // 2
+    q80 = tensor(rng, (SLOTS, 32, 80), "bfloat16", dev)
+    k80, v80 = _kv(rng, "model", SLOTS, 32, MAX_LEN, 80, "bfloat16", dev)
+    mask = torch.arange(MAX_LEN, device=dev) < cur
+    d80 = timed(lambda: decode_attention_fwd(q80, k80, v80, cur),
+                lambda: decode_attention_ref(q80, k80, v80, cur),
+                lambda: F.scaled_dot_product_attention(
+                    q80[:, :, None], k80, v80, attn_mask=mask[None]),
+                "decode_attention_kernel",
+                (2 * q80.numel() * 2 + 2 * SLOTS * 32 * cur * 80 * 2,
+                 4 * SLOTS * 32 * cur * 80, BF16_OPS_PER_S))
+    d80["max_abs_err"] = held(decode_attention_fwd(q80, k80, v80, cur),
+                              decode_attention_ref(q80, k80, v80, cur),
+                              "bfloat16")
+    d80["shape"] = [SLOTS, 32, 32, MAX_LEN, 80, cur]
+    return {"errors": errs, "main": t, "d80": d80,
             "shape": [SLOTS, 24, 8, MAX_LEN, 128, SERVE_CUR]}
 
 
@@ -294,7 +344,8 @@ def check_flash_attention(dev) -> dict:
         return (q, *_kv(rng, layout, B, hkv, S, D, dtype, dev))
 
     for layout, hq, hkv in (("tpu", 8, 8), ("model", 24, 8)):
-        for B, S, D in ((SLOTS, PROMPT, 128), (1, 40, 128), (2, 200, 64)):
+        for B, S, D in ((SLOTS, PROMPT, 128), (1, 40, 128), (2, 200, 64),
+                        (SLOTS, PROMPT, 80)):
             for causal in (True, False):
                 for dtype in ("float32", "bfloat16"):
                     q, k, v = qkv(layout, B, hq, hkv, S, D, dtype)
@@ -316,13 +367,180 @@ def check_flash_attention(dev) -> dict:
     t["max_abs_err"] = held(flash_attention_fwd(q, k, v, causal=True),
                             flash_attention_ref(q, k, v, causal=True),
                             "bfloat16")
-    return {"errors": errs, "main": t,
+    # zamba2-2.7b's shared block at prefill: 32 heads, D = 80
+    q, k, v = qkv("model", SLOTS, 32, 32, PROMPT, 80, "bfloat16")
+    pairs = SLOTS * 32 * PROMPT * (PROMPT + 1) // 2
+    d80 = timed(lambda: flash_attention_fwd(q, k, v, causal=True),
+                lambda: flash_attention_ref(q, k, v, causal=True),
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+                "flash_attention_kernel",
+                (2 * (2 * q.numel() + k.numel() + v.numel()),
+                 4 * pairs * 80, BF16_OPS_PER_S))
+    d80["max_abs_err"] = held(flash_attention_fwd(q, k, v, causal=True),
+                              flash_attention_ref(q, k, v, causal=True),
+                              "bfloat16")
+    d80["shape"] = [SLOTS, 32, 32, PROMPT, 80, "causal"]
+    return {"errors": errs, "main": t, "d80": d80,
             "shape": [SLOTS, 24, 8, PROMPT, 128, "causal"]}
 
 
-def serve_phase(dev, counters) -> dict:
-    """llama3.2-3b at full width through ServeEngine.serve: the serving main
-    path with every launch count at 0 just before it, then the same weights
+def ssd_inputs(rng, B, S, H, P, N, dtype, dev, init):
+    import torch
+    x = tensor(rng, (B, S, H, P), dtype, dev)
+    dt = torch.nn.functional.softplus(tensor(rng, (B, S, H), "float32", dev))
+    A = -torch.exp(0.5 * tensor(rng, (H,), "float32", dev))
+    Bm = tensor(rng, (B, S, N), dtype, dev)
+    Cm = tensor(rng, (B, S, N), dtype, dev)
+    s0 = tensor(rng, (B, H, P, N), "float32", dev) if init else None
+    return x, dt, A, Bm, Cm, s0
+
+
+def ssd_work(B, S, H, P, N, L, itemsize):
+    """(bytes, float32 operations, rate, bf16 operations) of one ssd_scan
+    launch: x, y, B, C in the working type, dt, A and the state in and out
+    in float32. B and C are shared across heads, so the function needs the
+    causal C.B tile once per (b, chunk), a product of bf16 operands; per
+    (b, h, chunk) the intra-chunk and state terms of y and the state update
+    take the float32 decay and state, so they count at the float32 rate."""
+    n_bytes = (2 * B * S * H * P + 2 * B * S * N) * itemsize + \
+        4 * (B * S * H + H + 2 * B * H * P * N)
+    scores = B * (S // L) * (L * (L + 1) // 2) * 2 * N
+    per_head = P * L * (L + 1) + L * P * 2 * N + P * N * 2 * L
+    return n_bytes, B * H * (S // L) * per_head, F32_OPS_PER_S, scores
+
+
+def check_ssd_scan(dev) -> dict:
+    from repro_torch.kernels.ref import SCAN_TOL, STATE_TOL, ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    rng = np.random.default_rng(6)
+    errs = {}
+    for B, S, H, P, N, L in ((1, 32, 1, 8, 4, 8), (2, 64, 3, 16, 8, 16),
+                             (1, 128, 2, 32, 16, 32),
+                             (SLOTS, PROMPT, 80, 64, 64, 64)):
+        for dtype in ("float32", "bfloat16"):
+            for init in (False, True):
+                x, dt, A, Bm, Cm, s0 = ssd_inputs(rng, B, S, H, P, N, dtype,
+                                                  dev, init)
+                y, s = ssd_scan(x, dt, A, Bm, Cm, chunk=L, initial_state=s0)
+                want_y, want_s = ssd_scan_ref(x, dt, A, Bm, Cm, s0)
+                key = f"{B}x{S}x{H}x{P}x{N}-L{L}-{dtype}-init{int(init)}"
+                errs[key] = held_tol(y, want_y, SCAN_TOL[dtype])
+                errs[key + "-state"] = held_tol(s, want_s, STATE_TOL)
+    # zamba2-2.7b's prefill: the cache's state goes in at every layer
+    x, dt, A, Bm, Cm, s0 = ssd_inputs(rng, SLOTS, PROMPT, 80, 64, 64,
+                                      "bfloat16", dev, True)
+    t = timed(lambda: ssd_scan(x, dt, A, Bm, Cm, initial_state=s0),
+              lambda: ssd_scan_ref(x, dt, A, Bm, Cm, s0), None,
+              "ssd_scan_kernel", ssd_work(SLOTS, PROMPT, 80, 64, 64, 64, 2),
+              plain_iters=10)
+    t["max_abs_err"] = held_tol(ssd_scan(x, dt, A, Bm, Cm,
+                                         initial_state=s0)[0],
+                                ssd_scan_ref(x, dt, A, Bm, Cm, s0)[0],
+                                SCAN_TOL["bfloat16"])
+    return {"errors": errs, "main": t, "tolerance": SCAN_TOL,
+            "state_tolerance": STATE_TOL,
+            "shape": [SLOTS, PROMPT, 80, 64, 64, 64]}
+
+
+def rwkv_inputs(rng, B, S, H, K, V, dtype, dev, init):
+    import torch
+    r = tensor(rng, (B, S, H, K), dtype, dev)
+    k = tensor(rng, (B, S, H, K), dtype, dev)
+    v = tensor(rng, (B, S, H, V), dtype, dev)
+    logw = -torch.nn.functional.softplus(
+        tensor(rng, (B, S, H, K), "float32", dev)) - 0.5
+    logw[:, ::7] -= 20.0                    # below the clip at -6
+    u = 0.1 * tensor(rng, (H, K), "float32", dev)
+    s0 = tensor(rng, (B, H, K, V), "float32", dev) if init else None
+    return r, k, v, logw, u, s0
+
+
+def rwkv_work(B, S, H, K, V, L, itemsize) -> tuple[float, float, float]:
+    """(bytes, float32 operations, rate) of one rwkv6_scan launch: r, k, v,
+    o in the working type, the clipped logw, u and the state in and out in
+    float32; per (b, h, chunk) the decayed scores (3 per k: two products
+    and the exponential), the bonus, the decayed r and k, o and the state
+    update, as the kernel does them."""
+    n_bytes = (3 * B * S * H * K + B * S * H * V) * itemsize + \
+        4 * (B * S * H * K + H * K + 2 * B * H * K * V)
+    per_chunk = (L * (L - 1) // 2) * 3 * K + 3 * L * K + 4 * L * K + \
+        L * (L - 1) * V + 2 * L * V + 2 * L * V * K + K * V * (2 * L + 1)
+    return n_bytes, B * H * (S // L) * per_chunk, F32_OPS_PER_S
+
+
+def check_rwkv6_scan(dev) -> dict:
+    from repro_torch.kernels.ref import SCAN_TOL, STATE_TOL, rwkv6_scan_ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    rng = np.random.default_rng(7)
+    errs = {}
+    for B, S, H, K, V, L in ((1, 32, 1, 8, 8, 8), (2, 64, 3, 16, 16, 16),
+                             (1, 96, 2, 32, 16, 32),
+                             (SLOTS, PROMPT, 40, 64, 64, 32)):
+        for dtype in ("float32", "bfloat16"):
+            for init in (False, True):
+                r, k, v, logw, u, s0 = rwkv_inputs(rng, B, S, H, K, V,
+                                                   dtype, dev, init)
+                o, s = rwkv6_scan(r, k, v, logw, u, chunk=L,
+                                  initial_state=s0)
+                want_o, want_s = rwkv6_scan_ref(r, k, v, logw, u, s0)
+                key = f"{B}x{S}x{H}x{K}x{V}-L{L}-{dtype}-init{int(init)}"
+                errs[key] = held_tol(o, want_o, SCAN_TOL[dtype])
+                errs[key + "-state"] = held_tol(s, want_s, STATE_TOL)
+    # rwkv6-3b's prefill: the cache's state goes in at every layer
+    r, k, v, logw, u, s0 = rwkv_inputs(rng, SLOTS, PROMPT, 40, 64, 64,
+                                       "bfloat16", dev, True)
+    t = timed(lambda: rwkv6_scan(r, k, v, logw, u, initial_state=s0),
+              lambda: rwkv6_scan_ref(r, k, v, logw, u, s0), None,
+              "rwkv6_scan_kernel", rwkv_work(SLOTS, PROMPT, 40, 64, 64, 32, 2),
+              plain_iters=10)
+    t["max_abs_err"] = held_tol(rwkv6_scan(r, k, v, logw, u,
+                                           initial_state=s0)[0],
+                                rwkv6_scan_ref(r, k, v, logw, u, s0)[0],
+                                SCAN_TOL["bfloat16"])
+    return {"errors": errs, "main": t, "tolerance": SCAN_TOL,
+            "state_tolerance": STATE_TOL,
+            "shape": [SLOTS, PROMPT, 40, 64, 64, 32]}
+
+
+def check_moe_gemm(dev) -> dict:
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.kernels.ref import MOE_TOL, moe_gemm_ref
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def randn(shape, dtype, scale):   # on the card: the weights are large
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            getattr(torch, dtype))
+
+    errs = {}
+    for E, C, K, N in ((2, 32, 64, 48), (4, 64, 96, 80), (1, 128, 128, 128),
+                       (64, 8, 2048, 1408), (64, 8, 1408, 2048),
+                       (64, 60, 2048, 1408), (64, 60, 1408, 2048),
+                       (3, 17, 33, 65)):
+        for dtype in ("float32", "bfloat16"):
+            x, w = randn((E, C, K), dtype, 0.3), randn((E, K, N), dtype, 0.3)
+            errs[f"{E}x{C}x{K}x{N}-{dtype}"] = held_tol(
+                moe_gemm(x, w), moe_gemm_ref(x, w), MOE_TOL[dtype])
+    times = {}
+    for C in (8, 60):    # deepseek-moe-16b's decode step, its prefill
+        x = randn((64, C, 2048), "bfloat16", 1.0)
+        w = randn((64, 2048, 1408), "bfloat16", 0.02)
+        times[C] = timed(lambda: moe_gemm(x, w), lambda: moe_gemm_ref(x, w),
+                         lambda: torch.bmm(x, w), "moe_gemm_kernel",
+                         ((x.numel() + w.numel() + 64 * C * 1408) * 2,
+                          2 * 64 * C * 2048 * 1408, BF16_OPS_PER_S),
+                         plain_iters=20, iters=50)
+        times[C]["max_abs_err"] = held_tol(moe_gemm(x, w),
+                                           moe_gemm_ref(x, w),
+                                           MOE_TOL["bfloat16"])
+    return {"errors": errs, "main": times[8], "times": times,
+            "tolerance": MOE_TOL, "shape": [64, 8, 2048, 1408]}
+
+
+def serve_phase(dev, counters, arch: str) -> dict:
+    """`arch` at full width through ServeEngine.serve: a serving main path
+    with every launch count at 0 just before it, then the same weights
     through the plain path (kernels=False) for comparison."""
     import torch
     from repro_torch.configs import ARCHS
@@ -330,7 +548,9 @@ def serve_phase(dev, counters) -> dict:
     from repro_torch.models.module import init_from_specs, param_bytes
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = ARCHS[ARCH]
+    cfg = ARCHS[arch]
+    new, logits_tol = SERVED[arch]
+    decode_steps = WAVES * (new - 1)
     specs = zoo.build_param_specs(cfg)
     t0 = time.perf_counter()
     params = init_from_specs(specs, torch.Generator(device=dev).manual_seed(0),
@@ -341,7 +561,7 @@ def serve_phase(dev, counters) -> dict:
                                                 size=(N_REQ, PROMPT))
 
     def requests():
-        return [Request(prompt=p, max_new_tokens=NEW) for p in prompts]
+        return [Request(prompt=p, max_new_tokens=new) for p in prompts]
 
     kw = dict(batch_slots=SLOTS, prompt_len=PROMPT, max_len=MAX_LEN,
               device=dev)
@@ -360,15 +580,15 @@ def serve_phase(dev, counters) -> dict:
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    expected = {"serialize_prefix": 0,
-                "rmsnorm": (2 * cfg.n_layers + 1) * (WAVES + DECODE_STEPS),
-                "decode_attention": cfg.n_layers * DECODE_STEPS,
-                "flash_attention": cfg.n_layers * WAVES}
+    per_prefill, per_step = zoo.kernel_launches(cfg)
+    expected = {name: WAVES * per_prefill.get(name, 0)
+                + decode_steps * per_step.get(name, 0) for name in counters}
     assert launches == expected, (launches, expected)
     for r in reqs:
-        assert r.done and len(r.out_tokens) == NEW, r
+        assert r.done and len(r.out_tokens) == new, r
         assert all(0 <= t < cfg.vocab for t in r.out_tokens)
 
+    plain.caches = zoo_caches(zoo, cfg, dev)   # serve from zeros, as engine
     plain_reqs = plain.serve(requests())
     same = [a == b for r, p in zip(reqs, plain_reqs)
             for a, b in zip(r.out_tokens, p.out_tokens)]
@@ -377,17 +597,18 @@ def serve_phase(dev, counters) -> dict:
     batch = {"tokens": torch.as_tensor(prompts[:SLOTS], device=dev)}
     logits = {}
     for name, use in (("kernels", None), ("plain", False)):
-        caches = init_from_specs(zoo.build_cache_specs(cfg, SLOTS, MAX_LEN),
-                                 0, device=dev)
-        logits[name], _ = zoo.prefill(cfg, params, batch, caches,
-                                      kernels=use)
+        logits[name], _ = zoo.prefill(cfg, params, batch,
+                                      zoo_caches(zoo, cfg, dev), kernels=use)
+    assert bool(torch.isfinite(logits["kernels"]).all())
     diff = float((logits["kernels"] - logits["plain"]).abs().max())
-    assert diff <= LOGITS_TOL, diff
+    logits_max = float(logits["plain"].abs().max())
+    assert diff <= logits_tol, diff
     top2 = logits["plain"].topk(2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 2 * LOGITS_TOL
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * logits_tol
     first_k = logits["kernels"].argmax(-1)
     first_p = logits["plain"].argmax(-1)
     assert torch.equal(first_k[clear], first_p[clear])
+    assert arch in F32_CHECK or bool(clear.any()), "no first token compared"
     assert first_p.tolist() == [r.out_tokens[0] for r in plain_reqs[:SLOTS]]
 
     def timed_wave(eng):
@@ -398,11 +619,11 @@ def serve_phase(dev, counters) -> dict:
         tok = eng.prefill_step(requests()[:SLOTS])
         tok.tolist()
         t1 = time.perf_counter()
-        for _ in range(NEW - 1):
+        for _ in range(new - 1):
             tok = eng.decode_once(tok)
             tok.tolist()
         t2 = time.perf_counter()
-        return (t1 - t0) * 1e3, (t2 - t1) * 1e3 / (NEW - 1), tok
+        return (t1 - t0) * 1e3, (t2 - t1) * 1e3 / (new - 1), tok
 
     waves = {name: timed_wave(eng)[:2] for name, eng in
              (("kernels", engine), ("plain", plain), ("kernels_again", engine),
@@ -415,19 +636,20 @@ def serve_phase(dev, counters) -> dict:
     kernels = [r for r in rows if not r[1].startswith("aten::")]
     busy_ms = sum(r[0] for r in kernels) / 1e3
     n_bytes = param_bytes(specs)
-    return {
-        "phase": "serve", "arch": ARCH, "params": cfg.param_count(),
+    out = {
+        "phase": "serve", "arch": arch, "params": cfg.param_count(),
         "param_bytes": n_bytes, "init_s": init_s, "requests": N_REQ,
         "batch_slots": SLOTS, "prompt_len": PROMPT, "max_len": MAX_LEN,
-        "new_tokens": NEW, "waves": WAVES, "decode_steps": DECODE_STEPS,
-        "wall_s": wall, "tokens_per_s": N_REQ * NEW / wall,
+        "new_tokens": new, "waves": WAVES, "decode_steps": decode_steps,
+        "wall_s": wall, "tokens_per_s": N_REQ * new / wall,
         "launches": launches,
         "prefill_ms": {k: v[0] for k, v in waves.items()},
         "decode_ms_per_step": {k: v[1] for k, v in waves.items()},
         "weights_bound_ms_per_step": n_bytes / HBM_BYTES_PER_S * 1e3,
         "max_memory_allocated": peak,
         "token_agreement_with_plain": sum(same) / len(same),
-        "prefill_logits_max_abs_diff": diff, "logits_tol": LOGITS_TOL,
+        "prefill_logits_max_abs_diff": diff, "logits_tol": logits_tol,
+        "prefill_logits_max_abs": logits_max,
         "first_tokens_compared": int(clear.sum()),
         "decode_step_profile": {
             "wall_ms": step_ms, "device_busy_ms": busy_ms,
@@ -435,6 +657,53 @@ def serve_phase(dev, counters) -> dict:
             "kernel_launches": sum(r[2] for r in kernels),
             "top": [{"name": k[:90], "device_ms": us / 1e3, "count": c}
                     for us, k, c in kernels[:10]]}}
+    del engine, plain, params, logits
+    torch.cuda.empty_cache()
+    if arch in F32_CHECK:
+        out["float32_check"] = float32_check(dev, cfg)
+    return out
+
+
+def float32_check(dev, cfg) -> dict:
+    """`cfg` at full width and depth in float32, seeded weights: the kernel
+    path's prefill and first decode logits against the plain path's, and
+    the largest difference."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import zoo
+    from repro_torch.models.module import init_from_specs
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    params = init_from_specs(zoo.build_param_specs(cfg),
+                             torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(6).integers(
+        1, cfg.vocab, size=(SLOTS, PROMPT)), device=dev)
+    out = {}
+    for name, use in (("kernels", None), ("plain", False)):
+        caches = zoo_caches(zoo, cfg, dev)
+        pre, caches = zoo.prefill(cfg, params, {"tokens": tokens}, caches,
+                                  kernels=use)
+        dec, _ = zoo.decode_step(cfg, params, pre.argmax(-1)[:, None],
+                                 caches, PROMPT, kernels=use)
+        out[name] = (pre, dec)
+    diffs = [float((a - b).abs().max())
+             for a, b in zip(out["kernels"], out["plain"])]
+    assert max(diffs) <= F32_LOGITS_TOL, diffs
+    res = {"n_layers": cfg.n_layers, "prefill_logits_max_abs_diff": diffs[0],
+           "decode_logits_max_abs_diff": diffs[1],
+           "logits_max_abs": float(out["plain"][0].abs().max()),
+           "tol": F32_LOGITS_TOL}
+    del params, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def zoo_caches(zoo, cfg, dev):
+    """Zeroed caches of the serving shape."""
+    from repro_torch.models.module import init_from_specs
+    return init_from_specs(zoo.build_cache_specs(cfg, SLOTS, MAX_LEN), 0,
+                           device=dev)
 
 
 def main() -> int:
@@ -451,8 +720,11 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import decode_attention_fwd
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.moe_gemm import moe_gemm
     from repro_torch.kernels.ref import serialize_prefix_ref
     from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.wavefront import serialize_prefix
 
     dev = torch.device("cuda")
@@ -506,13 +778,22 @@ def main() -> int:
 
     serving = {"rmsnorm": check_rmsnorm(dev),
                "decode_attention": check_decode_attention(dev),
-               "flash_attention": check_flash_attention(dev)}
+               "flash_attention": check_flash_attention(dev),
+               "ssd_scan": check_ssd_scan(dev),
+               "rwkv6_scan": check_rwkv6_scan(dev),
+               "moe_gemm": check_moe_gemm(dev)}
     for name, res in serving.items():
-        emit({"phase": "kernel", "name": name, "tolerance": SERVE_TOL,
-              "cases": len(res["errors"]),
-              "max_abs_err": max(res["errors"].values()),
-              "errors": res["errors"], "shape": res["shape"],
-              "times": res.get("times", res["main"])})
+        line = {"phase": "kernel", "name": name,
+                "tolerance": res.get("tolerance", SERVE_TOL),
+                "cases": len(res["errors"]),
+                "max_abs_err": max(res["errors"].values()),
+                "errors": res["errors"], "shape": res["shape"],
+                "times": res.get("times", res["main"])}
+        if "d80" in res:
+            line["d80"] = res["d80"]
+        if "state_tolerance" in res:
+            line["state_tolerance"] = res["state_tolerance"]
+        emit(line)
 
     # ---- batched fitness on the card --------------------------------------
     session = default_session()
@@ -568,8 +849,13 @@ def main() -> int:
     # ---- the main path: explore(prefilter=True) on the card ---------------
     w, acc = resnet18(), mc_hetero()
     kw = dict(granularity=GRAN, pop_size=24, generations=16, seed=0)
-    for fn in (serialize_prefix, rmsnorm_fwd, decode_attention_fwd,
-               flash_attention_fwd):
+    counters = {"serialize_prefix": serialize_prefix,
+                "rmsnorm": rmsnorm_fwd,
+                "decode_attention": decode_attention_fwd,
+                "flash_attention": flash_attention_fwd,
+                "ssd_scan": ssd_scan, "rwkv6_scan": rwkv6_scan,
+                "moe_gemm": moe_gemm}
+    for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -579,8 +865,8 @@ def main() -> int:
     launches = serialize_prefix.launches
     assert res.ga.prefilter_screened > 0, res.ga
     assert launches > 0, "explore never launched the serialize kernel"
-    assert rmsnorm_fwd.launches == decode_attention_fwd.launches == \
-        flash_attention_fwd.launches == 0
+    assert all(fn.launches == 0 for name, fn in counters.items()
+               if name != "serialize_prefix")
     final = session.engine(w, acc, GRAN).schedule(res.allocation, "latency")
     assert (res.latency_cc, res.energy_pj) == (final.latency_cc,
                                               final.energy_pj)
@@ -599,13 +885,11 @@ def main() -> int:
           "allocation_equals_unfiltered": bool(
               np.array_equal(res.allocation, base.allocation))})
 
-    # ---- the serving main path: llama3.2-3b through ServeEngine.serve ----
-    counters = {"serialize_prefix": serialize_prefix,
-                "rmsnorm": rmsnorm_fwd,
-                "decode_attention": decode_attention_fwd,
-                "flash_attention": flash_attention_fwd}
-    served = serve_phase(dev, counters)
-    emit(served)
+    # ---- the serving main paths: each model through ServeEngine.serve ----
+    served = {}
+    for arch in SERVED:
+        served[arch] = serve_phase(dev, counters, arch)
+        emit(served[arch])
 
     t = times[TIMED_SHAPES[0]]
     rows = [{
@@ -618,20 +902,32 @@ def main() -> int:
         "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
         "bound_by": t["bound"][1], "library_ms": None,
         "shape": list(TIMED_SHAPES[0])}]
-    for name, replaces in (
-            ("rmsnorm", "src/repro/kernels/rmsnorm.py:20"),
-            ("decode_attention", "src/repro/kernels/decode_attention.py:56"),
-            ("flash_attention", "src/repro/kernels/flash_attention.py:69")):
+    # each serving kernel's launches on the main path of its own family
+    # (llama3.2-3b for the first three), with every path's count beside
+    for name, replaces, arch in (
+            ("rmsnorm", "src/repro/kernels/rmsnorm.py:20", "llama3.2-3b"),
+            ("decode_attention", "src/repro/kernels/decode_attention.py:56",
+             "llama3.2-3b"),
+            ("flash_attention", "src/repro/kernels/flash_attention.py:69",
+             "llama3.2-3b"),
+            ("ssd_scan", "src/repro/kernels/ssd_scan.py:60", "zamba2-2.7b"),
+            ("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:58", "rwkv6-3b"),
+            ("moe_gemm", "src/repro/kernels/moe_gemm.py:39",
+             "deepseek-moe-16b")):
         m = serving[name]["main"]
-        rows.append({
+        row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces, "paths": ["serve"],
-            "launches": served["launches"][name],
+            "replaces": replaces, "paths": [f"serve {arch}"],
+            "launches": served[arch]["launches"][name],
+            "launches_by_path": {a: r["launches"][name]
+                                 for a, r in served.items()},
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": m["library_ms"], "shape": serving[name]["shape"]})
+            "library_ms": m["library_ms"], "shape": serving[name]["shape"]}
+        assert row["launches"] > 0, row
+        rows.append(row)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

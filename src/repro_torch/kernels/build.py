@@ -107,6 +107,7 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # as the launchers read
+SMEM_LIMIT = 232448    # bytes of shared memory one Hopper block may use
 
 
 def dtype_code(what: str, t: torch.Tensor) -> int:

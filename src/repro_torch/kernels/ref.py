@@ -6,7 +6,10 @@ The prefix ops keep the JAX package's shift-doubling order
 The attention and norm versions compute in float32 and return the input's
 type, as the reference's oracles do; the attention ones also take grouped
 KV heads (Hq = G * Hkv, query head h reads KV head h // G), which is the
-reference's function at G = 1.
+reference's function at G = 1.  The two scans return their final state
+beside their output and take an initial one (the extension the model path
+needs, see `repro_torch.kernels.ssd_scan`); at a zero initial state the
+output is the reference's function.
 """
 from __future__ import annotations
 
@@ -15,6 +18,16 @@ import math
 import torch
 
 NEG = -1e30
+
+# Tolerances (rtol = atol) at which a kernel is held against its plain
+# version on the card. Scans: the reference's 2e-4 (tests/test_kernels.py:
+# 82-109) for float32 outputs and for the float32 states; in bfloat16 both
+# versions compute in float32 from the same bf16 inputs and round the
+# output once to bf16 (relative 2**-8), so the output is held at the bf16
+# tolerance 2e-2. moe_gemm: the reference's (tests/test_kernels.py:64-67).
+SCAN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+STATE_TOL = 2e-4
+MOE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
 def prefix_sum(x: torch.Tensor) -> torch.Tensor:
@@ -94,7 +107,28 @@ def decode_attention_ref(q, k, v, cur_len):
     return out.reshape(B, Hq, v.shape[-1]).to(q.dtype)
 
 
+def moe_gemm_ref(x, w):
+    """Capacity-layout grouped GEMM. x: (E,C,K); w: (E,K,N) -> (E,C,N)."""
+    return torch.einsum("eck,ekn->ecn", x.float(), w.float()).to(x.dtype)
+
+
 def rmsnorm_ref(x, scale, eps: float = 1e-5):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, initial_state=None):
+    """Per-token SSD recurrence (see models.ssm.ssd_scan_oracle).
+
+    x: (B,S,H,P); dt: (B,S,H); A: (H,); Bm,Cm: (B,S,N); initial_state:
+    float32 (B,H,P,N) or None -> (y (B,S,H,P), final state (B,H,P,N))."""
+    from repro_torch.models.ssm import ssd_scan_oracle
+    return ssd_scan_oracle(x, dt, A, Bm, Cm, initial_state)
+
+
+def rwkv6_scan_ref(r, k, v, logw, u, initial_state=None):
+    """Per-token RWKV6 recurrence (see models.rwkv.rwkv6_scan_oracle) ->
+    (o (B,S,H,V), final state (B,H,K,V))."""
+    from repro_torch.models.rwkv import rwkv6_scan_oracle
+    return rwkv6_scan_oracle(r, k, v, logw, u, initial_state)

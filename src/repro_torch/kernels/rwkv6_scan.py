@@ -1,0 +1,114 @@
+"""RWKV6 WKV chunked scan: the wrapper of the CUDA kernel
+`csrc/rwkv6_scan.cu`, which replaces the JAX package's Pallas kernel
+`repro/kernels/rwkv6_scan.py:rwkv6_scan`.
+
+A CPU tensor goes to the plain version
+(`repro_torch.kernels.ref.rwkv6_scan_ref`, the per-token recurrence); a
+CUDA tensor goes to the kernel, or the wrapper raises.
+`rwkv6_scan.launches` counts the kernel's launches, and nothing else.
+
+The kernel computes the TPU kernel's function, extended as the SSD scan is
+(`repro_torch.kernels.ssd_scan`): an optional float32 initial state in and
+the final state out, which `models.rwkv.rwkv6_time_mix` carries.  The
+wrapper clips logw to [LOGW_MIN, 0] in float32 before the launch, as the
+TPU kernel's wrapper does (`rwkv6_scan.py:69`).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.build import (SMEM_LIMIT, check, dtype_code,
+                                       load_library, one_device, stream_of)
+from repro_torch.kernels.ref import rwkv6_scan_ref
+
+LOGW_MIN = -6.0  # per-step log-decay clamp (numerical guard, documented)
+
+
+def smem_bytes(K: int, V: int, L: int) -> int:
+    """Shared memory of one block, as `csrc/rwkv6_scan.cu:smem_floats`: six
+    (L, K+1) tiles (r, k, cum, cum_ex, r_dec, k_dec), the (L, V) values,
+    the (K, V) state, the (L, L) scores and the bonus vector of L."""
+    return 4 * (6 * L * (K + 1) + L * V + K * V + L * L + L)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernel's library, built at first use, with its launcher typed."""
+    lib = load_library("rwkv6_scan")
+    fn = lib.repro_rwkv6_scan
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 32,
+               initial_state: torch.Tensor | None = None):
+    """r, k, logw: (B,S,H,K); v: (B,S,H,V); u: (H,K); initial_state:
+    float32 (B,H,K,V) or None (zeros) -> (o (B,S,H,V) in r's type, float32
+    final state (B,H,K,V)).
+
+    S must be a multiple of the chunk ``L = min(chunk, S)``, as in the
+    reference.  On CUDA: r, k, v contiguous, float32 or bfloat16 of one
+    type; u and the state float32 and contiguous."""
+    if r.dim() != 4 or r.shape != k.shape or r.shape != logw.shape or \
+            v.dim() != 4 or v.shape[:3] != r.shape[:3]:
+        raise ValueError(f"shapes: r {tuple(r.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, logw {tuple(logw.shape)}")
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    if tuple(u.shape) != (H, K):
+        raise ValueError(f"u {tuple(u.shape)} is not {(H, K)}")
+    if initial_state is not None and \
+            tuple(initial_state.shape) != (B, H, K, V):
+        raise ValueError(f"initial_state {tuple(initial_state.shape)} is not "
+                         f"{(B, H, K, V)}")
+    L = min(chunk, S)
+    if L < 1 or S % L:
+        raise ValueError(f"S={S} is not a multiple of the chunk {L}")
+    tensors = dict(r=r, k=k, v=v, logw=logw, u=u)
+    if initial_state is not None:
+        tensors["initial_state"] = initial_state
+    device = one_device(**tensors)
+    if device.type == "cpu":
+        return rwkv6_scan_ref(r, k, v, logw, u, initial_state)
+    if device.type != "cuda":
+        raise ValueError(f"no rwkv6_scan kernel for {device.type}")
+    code = dtype_code("r", r)
+    if k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"r, k, v types differ: {r.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    for name in ("u", "initial_state"):
+        t = tensors.get(name)
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, not {t.dtype}")
+    if not all(t.is_contiguous() for t in tensors.values()
+               if t is not logw):
+        raise ValueError("r, k, v, u and initial_state must be contiguous")
+    if smem_bytes(K, V, L) > SMEM_LIMIT:
+        raise ValueError(f"K={K}, V={V}, L={L} need more shared memory than "
+                         f"a block has")
+    if r.numel() == 0 or V == 0:
+        raise ValueError("rwkv6_scan needs B, S, H, K and V >= 1")
+    if B > 65535:
+        raise ValueError(f"at most 65535 batches, not {B}")
+    logw = torch.clamp(logw.float(), LOGW_MIN, 0.0).contiguous()
+    o = torch.empty((B, S, H, V), dtype=r.dtype, device=device)
+    s_out = torch.empty((B, H, K, V), dtype=torch.float32, device=device)
+    s0 = None if initial_state is None else initial_state.data_ptr()
+    lib = _library()
+    with torch.cuda.device(device):
+        err = lib.repro_rwkv6_scan(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+            u.data_ptr(), s0, o.data_ptr(), s_out.data_ptr(), B, S, H, K, V,
+            L, code, stream_of(device))
+    check(lib, err, "rwkv6_scan")
+    rwkv6_scan.launches += 1
+    return o, s_out
+
+
+rwkv6_scan.launches = 0

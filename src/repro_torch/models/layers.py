@@ -1,7 +1,7 @@
 """Shared model layers, the dense part of the JAX package's
 `repro/models/layers.py`: norms, rotary embeddings, blocked
 (FlashAttention-style memory-efficient) attention, decode attention and the
-GLU / GELU MLPs, plus the MoE parameter specs.
+GLU / GELU MLPs, and the fine-grained MoE FFN.
 
 Everything is pure-functional over param dicts produced from ParamSpec trees
 (see module.py). Attention math accumulates in fp32; weights/activations are
@@ -9,11 +9,12 @@ bf16 by default. Mixed-precision products of the reference
 (`preferred_element_type=F32` on bf16 operands) upcast the operands to
 float32 first: a bf16 x bf16 product is exact in float32.
 
-`kernels=True` runs `rmsnorm`, `blocked_attention` and `decode_attention`
-through the port's hand-written kernels (`repro_torch.kernels`), which
-compute the TPU kernels' functions; each wrapper's docstring names how that
-differs from the plain math here. `apply_mrope`, `decode_attention_kv_sharded`
-and `moe_ffn` are not ported yet (ROADMAP queue 1, items 8 and 13).
+`kernels=True` runs `rmsnorm`, `blocked_attention`, `decode_attention` and
+the expert products of `moe_ffn` through the port's hand-written kernels
+(`repro_torch.kernels`), which compute the TPU kernels' functions; each
+wrapper's docstring names how that differs from the plain math here.
+`apply_mrope` and `decode_attention_kv_sharded` are not ported yet (ROADMAP
+queue 1, items 8 and 13).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch.models.module import ParamSpec
 
@@ -195,8 +197,7 @@ def gelu_mlp(params, x):
 
 
 # ---------------------------------------------------------------------------
-# fine-grained MoE (DeepSeekMoE) parameter specs; the layer itself
-# (moe_ffn) is ROADMAP queue 1, item 8.
+# fine-grained MoE (DeepSeekMoE): shared experts + top-k routed experts
 # ---------------------------------------------------------------------------
 
 def moe_specs(d_model: int, d_ff_expert: int, n_routed: int, n_shared: int,
@@ -214,3 +215,94 @@ def moe_specs(d_model: int, d_ff_expert: int, n_routed: int, n_shared: int,
     if n_shared:
         specs["shared"] = glu_mlp_specs(d_model, d_ff_expert * n_shared, dtype)
     return specs
+
+
+def _ragged_dot(xs, w, group_sizes):
+    """`jax.lax.ragged_dot` as a loop over experts: rows of `xs` (sorted by
+    expert) in consecutive groups of `group_sizes`, each times its w[e]."""
+    out = xs.new_empty((xs.shape[0], w.shape[-1]))
+    start = 0
+    for e, n in enumerate(group_sizes.tolist()):
+        out[start:start + n] = xs[start:start + n] @ w[e]
+        start += n
+    return out
+
+
+def moe_ffn(params, x, *, top_k: int, impl: str = "capacity",
+            capacity_factor: float = 1.25, kernels: bool = False):
+    """x: (B, S, D) -> (out, aux_loss). Token-local routing over one device
+    (the reference shards experts across a mesh; its collectives are
+    ROADMAP queue 1, item 13).
+
+    impl='capacity' (default): GShard-style fixed-capacity scatter/gather
+    dispatch + batched expert GEMMs; tokens beyond an expert's capacity are
+    dropped. A token's rank inside its expert comes from a stable argsort,
+    as the reference's `jnp.argsort`, so the same tokens drop.
+    `kernels=True` runs the three expert GEMMs through the CUDA kernel
+    (`repro_torch.kernels.moe_gemm`).
+    impl='ragged': sort + grouped GEMM (a loop over experts in place of
+    `jax.lax.ragged_dot`) — exact (no drops). It has no kernel, so it
+    raises with `kernels=True`.
+    """
+    B, S, D = x.shape
+    E = params["router"].shape[1]
+    wg, wu, wd = params["gate"], params["up"], params["down"]
+    n = B * S
+    xf = x.reshape(n, D)
+    logits = xf.float() @ params["router"]                     # (n, E)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(probs, top_k, dim=-1)              # (n, k)
+    topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+    flat_e = topi.reshape(-1)                                  # (n*k,) token-major
+    group_sizes = torch.bincount(flat_e, minlength=E)
+
+    if impl == "capacity":
+        gemm = moe_gemm if kernels else (
+            lambda a, b: torch.einsum("ecd,edf->ecf", a, b))
+        C = max(8, int(math.ceil(n * top_k * capacity_factor / E)))
+        # rank of each (token, slot) within its expert, via a stable argsort
+        order = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e[order]
+        idx = torch.arange(n * top_k, device=x.device)
+        is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=x.device),
+                              sorted_e[1:] != sorted_e[:-1]])
+        group_start = torch.cummax(torch.where(is_start, idx, 0), 0).values
+        rank = torch.empty_like(flat_e)
+        rank[order] = idx - group_start
+        ok = rank < C
+        rank_c = torch.clamp_max(rank, C - 1)
+        tok = idx // top_k
+        contrib = torch.where(ok[:, None], xf[tok], 0)
+        buf = xf.new_zeros((E, C, D)).index_put_((flat_e, rank_c), contrib,
+                                                 accumulate=True)
+        h = F.silu(gemm(buf, wg)) * gemm(buf, wu)              # (E, C, F)
+        y_buf = gemm(h, wd)
+        y = y_buf[flat_e, rank_c] * ok.to(y_buf.dtype)[:, None]
+        w_slot = topv.reshape(-1).float()
+        out = torch.sum((y.float() * w_slot[:, None]).reshape(n, top_k, D),
+                        dim=1)
+    elif impl == "ragged":
+        if kernels:
+            raise ValueError("moe_ffn(impl='ragged') has no kernel; "
+                             "pass kernels=False")
+        order = torch.argsort(flat_e, stable=True)
+        tok = order // top_k
+        xs = xf[tok]                                           # (n*k, D) sorted
+        h = F.silu(_ragged_dot(xs, wg, group_sizes)) * \
+            _ragged_dot(xs, wu, group_sizes)
+        y = _ragged_dot(h.to(xs.dtype), wd, group_sizes)
+        w_sorted = topv.reshape(-1)[order].float()
+        out = torch.zeros((n, D), dtype=F32, device=x.device).index_add_(
+            0, tok, y.float() * w_sorted[:, None])
+    else:
+        raise ValueError(f"unknown MoE impl {impl!r}")
+
+    if "shared" in params:
+        sp = params["shared"]
+        hs = F.silu(xf @ sp["gate"]) * (xf @ sp["up"])
+        out = out + (hs @ sp["down"]).float()
+    # switch-style load-balance aux loss
+    frac = group_sizes.float() / max(n * top_k, 1)
+    imp = probs.mean(dim=0)
+    aux = E * torch.sum(frac * imp)
+    return out.to(x.dtype).reshape(B, S, D), aux

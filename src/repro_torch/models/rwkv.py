@@ -1,13 +1,114 @@
-"""RWKV-6 parameter specs, from the JAX package's `repro/models/rwkv.py`.
-The layer itself (chunked WKV, the oracle and the decode step) is ROADMAP
-queue 1, item 11; its kernel is queue 2, item 6.
+"""RWKV-6 "Finch" layer (arXiv:2404.05892): linear attention with
+data-dependent per-channel decay, chunked parallel form for prefill and
+recurrent form for decode, from the JAX package's `repro/models/rwkv.py`.
+
+Per head (key dim K, value dim V):
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t                S: (K, V)
+    o_t = r_t S_{t-1} + (r_t . (u * k_t)) v_t          u: per-channel bonus
+
+The chunked form evaluates the intra-chunk causal part with an explicit
+(L, L, K) decay tensor (numerically safe: all exponents are <= 0, no
+factored exp blow-up), and carries S across chunks with a loop (the
+reference's `lax.scan`).  `rwkv6_time_mix(..., kernels=True)` runs the
+prefill scan through the CUDA kernel (`repro_torch.kernels.rwkv6_scan`) and
+`ln_out` through the rmsnorm kernel; decode stays plain torch.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels.rwkv6_scan import LOGW_MIN, rwkv6_scan
+from repro_torch.models.layers import rmsnorm
 from repro_torch.models.module import ParamSpec
 
+F32 = torch.float32
+
+
+def rwkv6_chunked(r, k, v, logw, u, chunk: int = 32, initial_state=None):
+    """r,k,logw: (B,S,H,K); v: (B,S,H,V); u: (H,K).
+
+    Returns (o: (B,S,H,V), final_state: (B,H,K,V))."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    L = min(chunk, S)
+    nc = S // L
+    assert nc * L == S
+
+    logw = torch.clamp(logw.float(), LOGW_MIN, 0.0)
+    rc = r.reshape(B, nc, L, H, K).float()
+    kc = k.reshape(B, nc, L, H, K).float()
+    vc = v.reshape(B, nc, L, H, V).float()
+    wc = logw.reshape(B, nc, L, H, K)
+
+    cum = torch.cumsum(wc, dim=2)                      # inclusive (B,nc,L,H,K)
+    cum_ex = cum - wc                                  # exclusive:  sum_{j<i}
+
+    # ---- intra-chunk: A[l,s] = sum_k r_l k_s exp(cum_ex_l - cum_s), s < l ---
+    diff = cum_ex[:, :, :, None] - cum[:, :, None, :, :, :]   # (B,nc,L,L,H,K)
+    tri = torch.ones(L, L, dtype=torch.bool, device=r.device).tril(-1)
+    dec = torch.where(tri[None, None, :, :, None, None], diff, -torch.inf)
+    A = torch.einsum("bclhk,bclshk->bclsh",
+                     rc, torch.exp(dec) * kc[:, :, None])      # (B,nc,L,L,H)
+    o_intra = torch.einsum("bclsh,bcshv->bclhv", A, vc)
+    # current-token bonus
+    bonus = torch.einsum("bclhk,bclhk->bclh", rc, u[None, None, None] * kc)
+    o_intra = o_intra + bonus[..., None] * vc
+
+    # ---- inter-chunk state carry --------------------------------------------
+    # state contribution of chunk c: sum_j diag(exp(cum_L - cum_j)) k_j^T v_j
+    k_dec = kc * torch.exp(cum[:, :, -1:, :, :] - cum)         # (B,nc,L,H,K)
+    chunk_kv = torch.einsum("bclhk,bclhv->bchkv", k_dec, vc)
+    chunk_decay = torch.exp(cum[:, :, -1])                      # (B,nc,H,K)
+
+    s = (r.new_zeros((B, H, K, V), dtype=F32) if initial_state is None
+         else initial_state.float())
+    prev = []
+    for c in range(nc):
+        prev.append(s)                                          # state BEFORE chunk
+        s = s * chunk_decay[:, c, :, :, None] + chunk_kv[:, c]
+    prev = torch.stack(prev, dim=1)                             # (B,nc,H,K,V)
+
+    r_dec = rc * torch.exp(cum_ex)                              # (B,nc,L,H,K)
+    o_inter = torch.einsum("bclhk,bchkv->bclhv", r_dec, prev)
+
+    o = (o_intra + o_inter).reshape(B, S, H, V)
+    return o.to(r.dtype), s
+
+
+def rwkv6_scan_oracle(r, k, v, logw, u, initial_state=None):
+    """Pure per-token recurrence (test oracle)."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    logw = torch.clamp(logw.float(), LOGW_MIN, 0.0)
+    s = (r.new_zeros((B, H, K, V), dtype=F32) if initial_state is None
+         else initial_state.float())
+    rf, kf, vf = r.float(), k.float(), v.float()
+    os = []
+    for t in range(S):
+        rt, kt, vt, wt = rf[:, t], kf[:, t], vf[:, t], logw[:, t]
+        os.append(torch.einsum("bhk,bhkv->bhv", rt, s) +
+                  torch.einsum("bhk,bhk->bh", rt, u[None] * kt)[..., None]
+                  * vt)
+        s = s * torch.exp(wt)[..., None] + torch.einsum("bhk,bhv->bhkv",
+                                                        kt, vt)
+    return torch.stack(os, dim=1).to(r.dtype), s
+
+
+def rwkv6_decode_step(state, r, k, v, logw, u):
+    """One token: r,k,v,logw (B,1,H,*). Returns (o, new_state)."""
+    rt, kt, vt = r[:, 0].float(), k[:, 0].float(), v[:, 0].float()
+    wt = torch.clamp(logw[:, 0].float(), LOGW_MIN, 0.0)
+    o = torch.einsum("bhk,bhkv->bhv", rt, state) + \
+        torch.einsum("bhk,bhk->bh", rt, u[None] * kt)[..., None] * vt
+    s = state * torch.exp(wt)[..., None] + torch.einsum("bhk,bhv->bhkv",
+                                                        kt, vt)
+    return o[:, None].to(r.dtype), s
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 block: time-mix (wkv attention) + channel-mix, with token-shift
+# ---------------------------------------------------------------------------
 
 def rwkv6_specs(d_model: int, head_dim: int = 64, d_ff: int | None = None,
                 dtype=torch.bfloat16):
@@ -41,3 +142,54 @@ def rwkv6_specs(d_model: int, head_dim: int = 64, d_ff: int | None = None,
             "Wr": ParamSpec((d_model, d_model), dtype, ("embed", None)),
         },
     }
+
+
+def _token_shift(x, last):
+    """shift(x)[t] = x[t-1]; position 0 takes `last` (decode carry)."""
+    return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def rwkv6_time_mix(p, x, *, head_dim: int = 64, chunk: int = 32,
+                   state=None, last_x=None, kernels: bool = False):
+    """Returns (y, (state, last x)); state/last_x given => carried in."""
+    B, S, D = x.shape
+    H = D // head_dim
+    last = last_x if last_x is not None else x.new_zeros((B, D))
+    xs = _token_shift(x, last)
+
+    def mix(mu):
+        return x + (xs - x) * mu
+
+    r = (mix(p["mu_r"]) @ p["Wr"]).reshape(B, S, H, head_dim)
+    k = (mix(p["mu_k"]) @ p["Wk"]).reshape(B, S, H, head_dim)
+    v = (mix(p["mu_v"]) @ p["Wv"]).reshape(B, S, H, head_dim)
+    g = F.silu(mix(p["mu_g"]) @ p["Wg"])
+    w_raw = (mix(p["mu_w"]).float() @ p["w_lora_a"].float()
+             @ p["w_lora_b"].float()) + p["w_bias"]
+    logw = -F.softplus(-w_raw) - 0.5                      # in (-inf, -0.5)
+    logw = logw.reshape(B, S, H, head_dim)
+
+    if S > 1:  # prefill (chunked parallel form)
+        if kernels:
+            o, s_final = rwkv6_scan(r, k, v, logw, p["u"], chunk=chunk,
+                                    initial_state=state)
+        else:
+            o, s_final = rwkv6_chunked(r, k, v, logw, p["u"], chunk=chunk,
+                                       initial_state=state)
+    else:      # decode (recurrent form)
+        s0 = state if state is not None else x.new_zeros(
+            (B, H, head_dim, head_dim), dtype=F32)
+        o, s_final = rwkv6_decode_step(s0, r, k, v, logw, p["u"])
+
+    o = rmsnorm(o.reshape(B, S, D), p["ln_out"], kernels=kernels) * g
+    return o @ p["Wo"], (s_final, x[:, -1, :])
+
+
+def rwkv6_channel_mix(p, x, last_x=None):
+    B, S, D = x.shape
+    last = last_x if last_x is not None else x.new_zeros((B, D))
+    xs = _token_shift(x, last)
+    xk = x + (xs - x) * p["mu_k"]
+    k = torch.square(torch.relu(xk @ p["Wk"]))
+    r = torch.sigmoid(x @ p["Wr"])
+    return r * (k @ p["Wv"]), x[:, -1, :]

@@ -1,13 +1,16 @@
-"""Decoder-only LM assembly, the dense part of the JAX package's
-`repro/models/transformer.py`: config-driven GQA mixer + GLU / GELU FFN,
-pre-norm residual blocks, the layer stack as a Python loop over the stacked
-parameters (views, no copies), and prefill / decode paths with per-layer
-caches written in place.
+"""Decoder-only LM assembly, from the JAX package's
+`repro/models/transformer.py`: config-driven mixer (GQA / RWKV6 / Mamba2) +
+FFN (GLU / GELU / fine-grained MoE / RWKV channel-mix), pre-norm residual
+blocks, the Zamba2 hybrid stack with its shared attention block, the layer
+stacks as Python loops over the stacked parameters (views, no copies), and
+prefill / decode paths with per-layer caches written in place: KV caches by
+slice assignment, recurrent state (`state`, `conv`, `last_tm`, `last_cm`)
+by `copy_` into the stacked cache's views.
 
 The parameter specs cover every family, so that `ArchConfig.param_count`
-holds for all ten configs; running a family other than the dense GQA
-decoder raises `NotImplementedError` naming the ROADMAP item that ports it.
-`chunked_ce_loss` and the remat policies wait for training (item 12).
+holds for all ten configs; running whisper, MLA (deepseek-v2) or M-RoPE
+(qwen2-vl) raises `NotImplementedError` naming the ROADMAP item that ports
+it. `chunked_ce_loss` and the remat policies wait for training (item 12).
 """
 from __future__ import annotations
 
@@ -18,30 +21,26 @@ from repro_torch.models import attention as attn
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (gelu_mlp, gelu_mlp_specs, glu_mlp,
-                                       glu_mlp_specs, layernorm, moe_specs,
-                                       rmsnorm)
+                                       glu_mlp_specs, layernorm, moe_ffn,
+                                       moe_specs, rmsnorm)
 from repro_torch.models.module import ParamSpec
 
 F32 = torch.float32
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for a configuration the port cannot run yet (the dense GQA
-    decoder: mixer gqa, ffn glu or gelu, rope or no rope, rms or ln norm)."""
+    """Raise for a configuration the port cannot run yet (mixer gqa, rwkv6
+    or mamba2, the hybrid stack, ffn glu, gelu, moe, rwkv_cm or none, rope
+    or no rope, rms or ln norm)."""
     if cfg.family == "encdec":
         what, item = "the encoder-decoder (whisper)", 11
-    elif cfg.hybrid:
-        what, item = "the hybrid shared-attention stack (zamba2)", 11
-    elif cfg.mixer in ("rwkv6", "mamba2"):
-        what, item = f"the {cfg.mixer} mixer", 11
     elif cfg.mixer == "mla":
         what, item = "the MLA mixer", 9
-    elif cfg.ffn == "moe":
-        what, item = "the MoE FFN", 8
     elif cfg.rope == "mrope":
         what, item = "M-RoPE", 8
     else:
-        for field, ok in (("mixer", ("gqa",)), ("ffn", ("glu", "gelu")),
+        for field, ok in (("mixer", ("gqa", "rwkv6", "mamba2")),
+                          ("ffn", ("glu", "gelu", "moe", "rwkv_cm", "none")),
                           ("rope", ("rope", "none")), ("norm", ("rms", "ln"))):
             if getattr(cfg, field) not in ok:
                 raise ValueError(f"{cfg.name}: unknown {field} "
@@ -131,27 +130,81 @@ def rwkv_layer_specs(cfg: ArchConfig):
 
 def apply_mixer(cfg: ArchConfig, p, x, positions, *, cache=None,
                 cur_len=None, kernels: bool = False):
-    """Returns (y, cache)."""
-    if cfg.mixer != "gqa":
-        check_supported(cfg)
-    return attn.gqa_attention(
-        p, x, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, rope=cfg.rope, rope_theta=cfg.rope_theta,
-        cache=cache, cur_len=cur_len, kernels=kernels)
+    """Returns (y, cache); a recurrent mixer's new state is copied into the
+    cache's views in place."""
+    if cfg.mixer == "gqa":
+        return attn.gqa_attention(
+            p, x, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope=cfg.rope, rope_theta=cfg.rope_theta,
+            cache=cache, cur_len=cur_len, kernels=kernels)
+    if cfg.mixer == "rwkv6":
+        state, last_tm = ((cache["state"], cache["last_tm"])
+                          if cache is not None else (None, None))
+        y, (s_new, last_new) = rwkv_mod.rwkv6_time_mix(
+            p["tm"], x, head_dim=cfg.head_dim, state=state, last_x=last_tm,
+            kernels=kernels)
+        if cache is not None:
+            cache["state"].copy_(s_new)
+            cache["last_tm"].copy_(last_new)
+        return y, cache
+    if cfg.mixer == "mamba2":
+        s = cfg.ssm
+        state, conv = ((cache["state"], cache["conv"])
+                       if cache is not None else (None, None))
+        y, (s_new, conv_new) = ssm_mod.mamba2_block(
+            p, x, d_state=s["d_state"], headdim=s["headdim"],
+            state=state, conv_state=conv, kernels=kernels)
+        if cache is not None:
+            cache["state"].copy_(s_new)
+            cache["conv"].copy_(conv_new)
+        return y, cache
+    check_supported(cfg)
+    raise ValueError(cfg.mixer)
 
 
-def apply_layer(cfg: ArchConfig, p, x, positions, *, cache=None,
-                cur_len=None, kernels: bool = False):
-    """Pre-norm residual block. Returns (x, cache)."""
+def apply_layer(cfg: ArchConfig, p, x, positions, *, moe_layer=False,
+                cache=None, cur_len=None, kernels: bool = False):
+    """Pre-norm residual block. Returns (x, cache).  (The reference also
+    returns the MoE aux loss, which only training reads: item 12.)"""
     h = _apply_norm(cfg, p["ln1"], x, kernels=kernels)
     y, cache = apply_mixer(cfg, p["mixer"], h, positions, cache=cache,
                            cur_len=cur_len, kernels=kernels)
     x = x + y
+    if cfg.mixer == "rwkv6":
+        # rwkv channel-mix with its own token shift
+        last_cm = cache["last_cm"] if cache is not None else None
+        h = _apply_norm(cfg, p["ln2"], x, kernels=kernels)
+        y, last_cm_new = rwkv_mod.rwkv6_channel_mix(p["ffn"], h, last_cm)
+        if cache is not None:
+            cache["last_cm"].copy_(last_cm_new)
+        return x + y, cache
     if "ffn" in p:
         h = _apply_norm(cfg, p["ln2"], x, kernels=kernels)
-        y = gelu_mlp(p["ffn"], h) if cfg.ffn == "gelu" else glu_mlp(p["ffn"], h)
+        if cfg.ffn == "moe" and moe_layer:
+            y, _ = moe_ffn(
+                p["ffn"], h, top_k=cfg.moe["top_k"],
+                impl=cfg.moe.get("impl", "capacity"),
+                capacity_factor=cfg.moe.get("capacity_factor", 1.25),
+                kernels=kernels)
+        elif cfg.ffn == "gelu":
+            y = gelu_mlp(p["ffn"], h)
+        else:
+            y = glu_mlp(p["ffn"], h)
         x = x + y
     return x, cache
+
+
+def apply_shared_attn(cfg: ArchConfig, p, x, positions, *, cache=None,
+                      cur_len=None, kernels: bool = False):
+    """Zamba2 shared attention block (full attention, shared params)."""
+    h = _apply_norm(cfg, p["ln1"], x, kernels=kernels)
+    y, cache = attn.gqa_attention(
+        p["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, rope=cfg.rope, rope_theta=cfg.rope_theta,
+        cache=cache, cur_len=cur_len, kernels=kernels)
+    x = x + y
+    h = _apply_norm(cfg, p["ln2"], x, kernels=kernels)
+    return x + glu_mlp(p["ffn"], h), cache
 
 
 # ---------------------------------------------------------------------------
@@ -165,15 +218,19 @@ def _index(tree, i):
     return tree[i]
 
 
-def _run_layers(cfg, stacked_params, x, positions, *, caches=None,
-                cur_len=None, kernels: bool = False):
+def _run_layers(cfg, stacked_params, x, positions, *, moe_layer=False,
+                caches=None, cur_len=None, kernels: bool = False,
+                layers=None):
     """Apply a stacked layer group in order (the reference's `lax.scan`).
-    caches: tree stacked on axis 0, written in place, or None."""
-    n = stacked_params["ln1"]["scale"].shape[0]
-    for i in range(n):
+    caches: tree stacked on axis 0, written in place, or None; `layers`: the
+    indices to run (default all)."""
+    if layers is None:
+        layers = range(stacked_params["ln1"]["scale"].shape[0])
+    for i in layers:
         cache_i = None if caches is None else _index(caches, i)
         x, _ = apply_layer(cfg, _index(stacked_params, i), x, positions,
-                           cache=cache_i, cur_len=cur_len, kernels=kernels)
+                           moe_layer=moe_layer, cache=cache_i,
+                           cur_len=cur_len, kernels=kernels)
     return x
 
 
@@ -190,8 +247,10 @@ def resolve_kernels(kernels, device: torch.device) -> bool:
 
 def decoder_forward(cfg: ArchConfig, params, tokens, *, positions=None,
                     caches=None, cur_len=None, kernels=None):
-    """tokens: (B,S) int. caches: {"layers": stacked cache tree} or None,
-    written in place; cur_len: Python int or None.
+    """tokens: (B,S) int. caches: the tree of `zoo.build_cache_specs`
+    ({"layers": stacked cache tree}, plus "shared" for the hybrid stack and
+    "dense_layers" for MoE) or None, written in place; cur_len: Python int
+    or None.
 
     Returns (hidden: (B,S,D), caches)."""
     check_supported(cfg)
@@ -203,9 +262,28 @@ def decoder_forward(cfg: ArchConfig, params, tokens, *, positions=None,
         positions = base + torch.arange(S, device=embed.device)[None, :]
         positions = positions.expand(B, S)
     x = embed[tokens]
-    x = _run_layers(cfg, params["layers"], x, positions,
-                    caches=None if caches is None else caches["layers"],
-                    cur_len=cur_len, kernels=kernels)
+    run = dict(cur_len=cur_len, kernels=kernels)
+
+    def group(name):
+        return None if caches is None else caches[name]
+
+    if cfg.hybrid:  # zamba2: groups of mamba layers + shared attention block
+        every = cfg.hybrid["attn_every"]
+        for g in range(cfg.n_layers // every):
+            x = _run_layers(cfg, params["layers"], x, positions,
+                            caches=group("layers"),
+                            layers=range(g * every, (g + 1) * every), **run)
+            x, _ = apply_shared_attn(
+                cfg, params["shared_attn"], x, positions,
+                cache=None if caches is None else _index(caches["shared"], g),
+                **run)
+    else:
+        if "dense_layers" in params:
+            x = _run_layers(cfg, params["dense_layers"], x, positions,
+                            caches=group("dense_layers"), **run)
+        x = _run_layers(cfg, params["layers"], x, positions,
+                        moe_layer=cfg.ffn == "moe", caches=group("layers"),
+                        **run)
     x = _apply_norm(cfg, params["final_norm"], x, kernels=kernels)
     return x, caches
 

@@ -2,9 +2,10 @@
 + analytic MODEL_FLOPS, from the JAX package's `repro/models/zoo.py`.
 
 `prefill` and `decode_step` take `kernels`: `None` runs the hand-written
-CUDA kernels (rmsnorm, flash attention, decode attention) when the weights
-lie on the card and the plain model math on the CPU; `True` off the card
-raises; `False` runs the plain math on the card too, to compare the two.
+CUDA kernels (rmsnorm, flash attention, decode attention, the SSD and WKV
+scans, the expert GEMM) when the weights lie on the card and the plain model
+math on the CPU; `True` off the card raises; `False` runs the plain math on
+the card too, to compare the two.
 Caches are written in place. Training (`train_loss`) and `input_specs` wait
 for ROADMAP queue 1, item 12.
 """
@@ -12,11 +13,16 @@ from __future__ import annotations
 
 from typing import Any
 
+import torch
+
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.module import ParamSpec, count_params, stack_specs
+from repro_torch.models.ssm import CONV_W
+
+F32 = torch.float32
 
 
 # ---------------------------------------------------------------------------
@@ -51,11 +57,67 @@ def build_param_specs(cfg: ArchConfig):
     return specs
 
 
+def _mixer_cache_specs(cfg: ArchConfig, batch: int, max_len: int):
+    if cfg.mixer == "gqa":
+        return attn.gqa_cache_specs(cfg, batch, max_len, cfg.dtype)
+    if cfg.mixer == "rwkv6":
+        H = cfg.d_model // cfg.head_dim
+        return {
+            "state": ParamSpec((batch, H, cfg.head_dim, cfg.head_dim), F32,
+                               ("batch", "heads", None, None), init="zeros"),
+            "last_tm": ParamSpec((batch, cfg.d_model), cfg.dtype,
+                                 ("batch", None), init="zeros"),
+            "last_cm": ParamSpec((batch, cfg.d_model), cfg.dtype,
+                                 ("batch", None), init="zeros"),
+        }
+    if cfg.mixer == "mamba2":
+        s = cfg.ssm
+        d_inner = s.get("expand", 2) * cfg.d_model
+        H = d_inner // s["headdim"]
+        d_conv = d_inner + 2 * s["d_state"]
+        return {
+            "state": ParamSpec((batch, H, s["headdim"], s["d_state"]), F32,
+                               ("batch", "heads", None, None), init="zeros"),
+            "conv": ParamSpec((batch, CONV_W - 1, d_conv), cfg.dtype,
+                              ("batch", None, None), init="zeros"),
+        }
+    raise ValueError(cfg.mixer)
+
+
 def build_cache_specs(cfg: ArchConfig, batch: int, max_len: int):
-    """KV caches of the dense GQA decoder, stacked over layers."""
+    """Per-layer caches stacked over layers: KV for attention, the float32
+    state and the token-shift / conv carry for RWKV6 and Mamba2; the hybrid
+    stack adds one KV cache per shared-attention application ("shared"),
+    and MoE splits off its dense first layers ("dense_layers")."""
     tfm.check_supported(cfg)
-    per_layer = attn.gqa_cache_specs(cfg, batch, max_len, cfg.dtype)
-    return {"layers": stack_specs(per_layer, cfg.n_layers)}
+    per_layer = _mixer_cache_specs(cfg, batch, max_len)
+    if cfg.hybrid:
+        n_groups = cfg.n_layers // cfg.hybrid["attn_every"]
+        kv = attn.gqa_cache_specs(cfg, batch, max_len, cfg.dtype)
+        return {"layers": stack_specs(per_layer, cfg.n_layers),
+                "shared": stack_specs(kv, n_groups)}
+    n_dense = cfg.moe.get("first_dense_layers", 0) if cfg.ffn == "moe" else 0
+    out = {"layers": stack_specs(per_layer, cfg.n_layers - n_dense)}
+    if n_dense:
+        out["dense_layers"] = stack_specs(per_layer, n_dense)
+    return out
+
+
+def kernel_launches(cfg: ArchConfig) -> tuple[dict, dict]:
+    """Each CUDA kernel's launches in one prefill and in one decode step of
+    `cfg` on the kernel path (kernels absent from a dict launch 0 times)."""
+    n = cfg.n_layers
+    if cfg.hybrid:                  # Mamba2 layers + the shared block
+        g = n // cfg.hybrid["attn_every"]
+        norms = 2 * n + 2 * g + 1   # ln1 and the gated norm; ln1, ln2
+        return ({"rmsnorm": norms, "flash_attention": g, "ssd_scan": n},
+                {"rmsnorm": norms, "decode_attention": g})
+    if cfg.mixer == "rwkv6":        # ln1, ln_out, ln2
+        return ({"rmsnorm": 3 * n + 1, "rwkv6_scan": n},
+                {"rmsnorm": 3 * n + 1})
+    moe = 3 * (n - cfg.moe["first_dense_layers"]) if cfg.ffn == "moe" else 0
+    return ({"rmsnorm": 2 * n + 1, "flash_attention": n, "moe_gemm": moe},
+            {"rmsnorm": 2 * n + 1, "decode_attention": n, "moe_gemm": moe})
 
 
 # ---------------------------------------------------------------------------

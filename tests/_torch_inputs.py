@@ -10,6 +10,19 @@ RTOL = 1e-5
 # (tests/test_kernels.py:17-19): float32 2e-5, bfloat16 2e-2
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# bfloat16 through the reduced Mamba2 / RWKV6 / MoE stacks, against the
+# reference: one-ulp differences compound through the recurrent state and
+# the routing. The reference's own two executions of the same weights (its
+# jitted layer scan, and the same layers under `jax.disable_jit()`) differ
+# by up to 0.098 in zamba2's final hidden state (|h| <= 4.1, where a bf16
+# ulp is 0.031) and by up to 0.0226 in its prefill logits (|logit| <=
+# 0.79), beyond the dense decoders' 2e-2; the port differs from the
+# reference by up to 0.123 (rwkv6's hidden state) and 0.0265 (zamba2's
+# prefill logits). So there the hidden state is held at 5 ulps of its
+# magnitude (0.15) and the logits at about twice the reference's own
+# spread (0.05).
+DEEP_BF16 = {"hidden": dict(rtol=2e-2, atol=0.15),
+             "logits": dict(rtol=2e-2, atol=0.05)}
 
 
 def normal(shape, seed, scale=1.0):

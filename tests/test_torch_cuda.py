@@ -5,22 +5,29 @@ machine with a card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
-from _torch_inputs import RTOL, TOL, normal, population, queues
+from _torch_inputs import DEEP_BF16, RTOL, TOL, normal, population, queues
 
 from repro_torch.api.session import ExplorationSession
 from repro_torch.configs import ARCHS, reduce_config
 from repro_torch.configs.paper_workloads import squeezenet
 from repro_torch.core.vectorized import BatchedFitness
 from repro_torch.hw.catalog import mc_hetero, mc_hom_tpu_chip4
+from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.ref import (decode_attention_ref,
-                                     flash_attention_ref, rmsnorm_ref,
-                                     serialize_prefix_ref)
+                                     flash_attention_ref, moe_gemm_ref,
+                                     rmsnorm_ref, rwkv6_scan_ref,
+                                     serialize_prefix_ref, ssd_scan_ref)
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.wavefront import serialize_prefix
 from repro_torch.models import zoo
 from repro_torch.models.module import init_from_specs
@@ -118,7 +125,7 @@ def _kv(cuda, layout, B, Hkv, T, D, dtype, seed):
 
 @pytest.mark.parametrize("layout,Hq,Hkv", [("tpu", 4, 4), ("model", 24, 8)])
 @pytest.mark.parametrize("B,T,D", [(4, 168, 128), (2, 200, 64),
-                                   (3, 64, 32)])
+                                   (3, 64, 32), (4, 168, 80)])
 @pytest.mark.parametrize("cur", ["one", "mid", "full"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel_matches_plain(cuda, layout, Hq, Hkv, B, T,
@@ -134,7 +141,7 @@ def test_decode_attention_kernel_matches_plain(cuda, layout, Hq, Hkv, B, T,
 
 @pytest.mark.parametrize("layout,Hq,Hkv", [("tpu", 3, 3), ("model", 24, 8)])
 @pytest.mark.parametrize("B,S,D", [(4, 128, 128), (1, 40, 16), (2, 96, 64),
-                                   (1, 200, 32)])
+                                   (1, 200, 32), (4, 128, 80)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_matches_plain(cuda, layout, Hq, Hkv, B, S, D,
@@ -178,26 +185,161 @@ def test_logits_f32_on_the_card_equal_float32_operands(cuda):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-34b"])
-def test_reduced_decoder_kernel_path_matches_plain_path(cuda, arch):
-    cfg = reduce_config(ARCHS[arch])
-    params = init_from_specs(zoo.build_param_specs(cfg), 0, device=cuda)
-    toks = torch.as_tensor(normal((2, 24), 13) > 0, device=cuda).long() + 5
+# ---- the scans and the expert GEMM ----------------------------------------
+
+# the tolerances of repro_torch.kernels.ref, which chip_smoke.py holds too
+SCAN_TOL = {k: dict(rtol=t, atol=t) for k, t in ref.SCAN_TOL.items()}
+STATE_TOL = dict(rtol=ref.STATE_TOL, atol=ref.STATE_TOL)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 32, 1, 8, 4, 8), (2, 64, 3, 16, 8, 16), (1, 128, 2, 32, 16, 32),
+    (4, 128, 80, 64, 64, 64), (2, 64, 5, 64, 64, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype,
+                                       init):
+    x = _on(cuda, normal((B, S, H, P), 0), dtype)
+    dt = torch.nn.functional.softplus(_on(cuda, normal((B, S, H), 1),
+                                          "float32"))
+    A = -torch.exp(_on(cuda, normal((H,), 2, 0.5), "float32"))
+    Bm = _on(cuda, normal((B, S, N), 3), dtype)
+    Cm = _on(cuda, normal((B, S, N), 4), dtype)
+    s0 = _on(cuda, normal((B, H, P, N), 5), "float32") if init else None
+    before = ssd_scan.launches
+    y, s = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=s0)
+    assert ssd_scan.launches == before + 1 and y.dtype == x.dtype
+    want_y, want_s = ssd_scan_ref(x, dt, A, Bm, Cm, s0)
+    torch.testing.assert_close(y.float(), want_y.float(), **SCAN_TOL[dtype])
+    torch.testing.assert_close(s, want_s, **STATE_TOL)
+
+
+def test_ssd_scan_kernel_takes_the_models_strided_slices(cuda):
+    # x, B and C as slices of one (B, S, d_inner + 2N) conv output
+    conv = _on(cuda, normal((2, 64, 4 * 16 + 2 * 8), 6), "bfloat16")
+    x = conv[..., :64].reshape(2, 64, 4, 16)
+    Bm, Cm = conv[..., 64:72], conv[..., 72:]
+    dt = torch.nn.functional.softplus(_on(cuda, normal((2, 64, 4), 7),
+                                          "float32"))
+    A = -torch.exp(_on(cuda, normal((4,), 8, 0.5), "float32"))
+    y, s = ssd_scan(x, dt, A, Bm, Cm, chunk=32)
+    want_y, want_s = ssd_scan_ref(x.contiguous(), dt, A, Bm.contiguous(),
+                                  Cm.contiguous())
+    torch.testing.assert_close(y.float(), want_y.float(),
+                               **SCAN_TOL["bfloat16"])
+    torch.testing.assert_close(s, want_s, **STATE_TOL)
+
+
+@pytest.mark.parametrize("B,S,H,K,V,chunk", [
+    (1, 32, 1, 8, 8, 8), (2, 64, 3, 16, 16, 16), (1, 96, 2, 32, 16, 32),
+    (4, 128, 40, 64, 64, 32), (2, 64, 3, 64, 32, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("init", [False, True])
+def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, K, V, chunk, dtype,
+                                         init):
+    r = _on(cuda, normal((B, S, H, K), 0), dtype)
+    k = _on(cuda, normal((B, S, H, K), 1), dtype)
+    v = _on(cuda, normal((B, S, H, V), 2), dtype)
+    logw = -torch.nn.functional.softplus(
+        _on(cuda, normal((B, S, H, K), 3), "float32")) - 0.5
+    logw[:, ::7] = -20.0                     # below the clip at -6
+    u = _on(cuda, normal((H, K), 4, 0.1), "float32")
+    s0 = _on(cuda, normal((B, H, K, V), 5), "float32") if init else None
+    before = rwkv6_scan.launches
+    o, s = rwkv6_scan(r, k, v, logw, u, chunk=chunk, initial_state=s0)
+    assert rwkv6_scan.launches == before + 1 and o.dtype == r.dtype
+    want_o, want_s = rwkv6_scan_ref(r, k, v, logw, u, s0)
+    torch.testing.assert_close(o.float(), want_o.float(), **SCAN_TOL[dtype])
+    torch.testing.assert_close(s, want_s, **STATE_TOL)
+
+
+@pytest.mark.parametrize("E,C,K,N", [
+    (2, 32, 64, 48), (4, 64, 96, 80), (1, 128, 128, 128),
+    (64, 8, 2048, 1408), (64, 60, 1408, 2048), (3, 17, 33, 65)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gemm_kernel_matches_plain(cuda, E, C, K, N, dtype):
+    x = _on(cuda, normal((E, C, K), 0, 0.3), dtype)
+    w = _on(cuda, normal((E, K, N), 1, 0.3), dtype)
+    before = moe_gemm.launches
+    got = moe_gemm(x, w)
+    assert moe_gemm.launches == before + 1 and got.dtype == x.dtype
+    tol = ref.MOE_TOL[dtype]
+    torch.testing.assert_close(got.float(), moe_gemm_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_scan_and_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.ones(1, 16, 2, 8, device=cuda)
+    dt = torch.ones(1, 16, 2, device=cuda)
+    A = -torch.ones(2, device=cuda)
+    Bm = torch.ones(1, 16, 4, device=cuda)
+    with pytest.raises(TypeError):
+        ssd_scan(x, dt.double(), A, Bm, Bm)
+    with pytest.raises(TypeError):
+        ssd_scan(x.bfloat16(), dt, A, Bm, Bm)
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, A, Bm.cpu(), Bm)
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, A, Bm, Bm, initial_state=torch.ones(
+            1, 2, 8, 4, device=cuda).transpose(2, 3).contiguous().transpose(
+                2, 3))
+    r = torch.ones(1, 16, 2, 8, device=cuda)
+    u = torch.ones(2, 8, device=cuda)
+    with pytest.raises(TypeError):
+        rwkv6_scan(r, r, r.bfloat16(), r, u)
+    with pytest.raises(ValueError):
+        rwkv6_scan(r.transpose(1, 2).contiguous().transpose(1, 2), r, r, r,
+                   u)
+    with pytest.raises(TypeError):
+        moe_gemm(torch.ones(2, 4, 8, device=cuda),
+                 torch.ones(2, 8, 4, device=cuda).bfloat16())
+    with pytest.raises(ValueError):
+        moe_gemm(torch.ones(2, 8, 4, device=cuda).transpose(1, 2),
+                 torch.ones(2, 8, 4, device=cuda))
+
+
+_KERNELS = {"rmsnorm": rmsnorm_fwd, "flash_attention": flash_attention_fwd,
+            "decode_attention": decode_attention_fwd, "ssd_scan": ssd_scan,
+            "rwkv6_scan": rwkv6_scan, "moe_gemm": moe_gemm}
+
+
+def _kernel_and_plain_logits(cfg, params, toks, device):
+    """Prefill and one decode step on the kernel path and on the plain path,
+    with each kernel's launches checked: {path: (prefill, decode) logits}."""
+    pre_n, step_n = zoo.kernel_launches(cfg)
     out = {}
     for name, kernels in (("kernels", None), ("plain", False)):
-        caches = init_from_specs(zoo.build_cache_specs(cfg, 2, 32), 0,
-                                 device=cuda)
-        before = (rmsnorm_fwd.launches, flash_attention_fwd.launches,
-                  decode_attention_fwd.launches)
+        caches = init_from_specs(zoo.build_cache_specs(cfg, 2, 40), 0,
+                                 device=device)
+        before = {k: fn.launches for k, fn in _KERNELS.items()}
         pre, caches = zoo.prefill(cfg, params, {"tokens": toks}, caches,
                                   kernels=kernels)
         dec, _ = zoo.decode_step(cfg, params, pre.argmax(-1)[:, None],
-                                 caches, 24, kernels=kernels)
-        after = (rmsnorm_fwd.launches, flash_attention_fwd.launches,
-                 decode_attention_fwd.launches)
-        n = cfg.n_layers
-        assert [a - b for a, b in zip(after, before)] == (
-            [2 * (2 * n + 1), n, n] if kernels is None else [0, 0, 0])
+                                 caches, 32, kernels=kernels)
+        used = {k: fn.launches - before[k] for k, fn in _KERNELS.items()}
+        want = {k: pre_n.get(k, 0) + step_n.get(k, 0) for k in _KERNELS}
+        assert used == (want if kernels is None else dict.fromkeys(used, 0))
         out[name] = (pre, dec)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-34b", "zamba2-2.7b",
+                                  "rwkv6-3b", "deepseek-moe-16b"])
+def test_reduced_decoder_kernel_path_matches_plain_path(cuda, arch):
+    cfg = reduce_config(ARCHS[arch])
+    params = init_from_specs(zoo.build_param_specs(cfg), 0, device=cuda)
+    toks = torch.as_tensor(normal((2, 32), 13) > 0, device=cuda).long() + 5
+    out = _kernel_and_plain_logits(cfg, params, toks, cuda)
+    # the kernels round in other places than the plain layers; through the
+    # recurrent and MoE stacks that compounds as it does across packages
+    tol = TOL["bfloat16"] if cfg.mixer == "gqa" and cfg.ffn != "moe" \
+        else DEEP_BF16["logits"]
     for got, want in zip(out["kernels"], out["plain"]):
-        _close(got, want, "bfloat16")
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    # in float32 no bf16 rounding feeds that divergence: the two paths
+    # differ only in the order of float32 sums, so they are held closely
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    params = init_from_specs(zoo.build_param_specs(cfg), 0, device=cuda)
+    out = _kernel_and_plain_logits(cfg, params, toks, cuda)
+    for got, want in zip(out["kernels"], out["plain"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

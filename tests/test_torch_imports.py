@@ -1,7 +1,9 @@
 """The port stands alone: `repro_torch` and `chip_smoke.py` import neither
 `jax` nor anything of the JAX package `repro`.  With both blocked, every
-module of the port imports, `explore(prefilter=True)` runs and a tiny
-`ServeEngine` serves on the CPU."""
+module of the port imports (the scan and expert-GEMM kernels' wrappers and
+the Mamba2, RWKV6 and MoE layers among them), `explore(prefilter=True)`
+runs and a tiny `ServeEngine` serves each family the port runs on the
+CPU."""
 import ast
 import os
 import subprocess
@@ -34,14 +36,17 @@ from repro_torch.configs import ARCHS, reduce_config
 from repro_torch.models.module import init_from_specs
 from repro_torch.models.zoo import build_param_specs
 from repro_torch.serve.engine import Request, ServeEngine
-cfg = reduce_config(ARCHS["llama3.2-3b"], n_layers=1, d_model=64, d_ff=128,
-                    vocab=128)
-params = init_from_specs(build_param_specs(cfg), 0, device="cpu")
-engine = ServeEngine(cfg, params, batch_slots=2, max_len=12, prompt_len=8,
-                     device="cpu")
-reqs = engine.run([Request(prompt=np.arange(1, 9), max_new_tokens=3)
-                   for _ in range(2)])
-assert all(len(r.out_tokens) == 3 for r in reqs)
+for arch in ("llama3.2-3b", "zamba2-2.7b", "rwkv6-3b", "deepseek-moe-16b"):
+    cfg = reduce_config(ARCHS[arch], n_layers=2, d_model=64, d_ff=128,
+                        vocab=128)
+    params = init_from_specs(build_param_specs(cfg), 0, device="cpu")
+    engine = ServeEngine(cfg, params, batch_slots=2, max_len=12,
+                         prompt_len=8, device="cpu")
+    reqs = engine.serve([Request(prompt=np.arange(1, 9), max_new_tokens=3)
+                         for _ in range(3)])
+    assert all(len(r.out_tokens) == 3 for r in reqs), arch
+for mod in ("ssd_scan", "rwkv6_scan", "moe_gemm"):
+    assert f"repro_torch.kernels.{mod}" in names
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 print(len(names), "modules")
 """

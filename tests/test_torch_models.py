@@ -1,13 +1,17 @@
-"""The port's configs and dense decoder (`repro_torch.configs`,
+"""The port's configs and decoders (`repro_torch.configs`,
 `repro_torch.models`) against the JAX package's, on weights initialised in
 the reference and carried across with `repro_torch.interop`.
 
-Reduced llama3.2-3b (GQA, GLU, RMSNorm) and granite-34b (MQA, GELU MLP)
-run `decoder_forward`, `prefill` and two `decode_step`s.  Tolerances:
-float32 variants at 2e-5 (the same float32 arithmetic, sums in another
-order); bfloat16 at 2e-2 (the reference's bf16 kernel tolerance: the two
-frameworks round bf16 activations at slightly different places, one bf16
-ulp each, and the residual stream carries them through two layers).
+Reduced llama3.2-3b (GQA, GLU, RMSNorm), granite-34b (MQA, GELU MLP),
+zamba2-2.7b (Mamba2 layers and the shared attention block), rwkv6-3b (time
+mix and channel mix) and deepseek-moe-16b (a dense first layer, then the
+capacity MoE) run `decoder_forward`, `prefill` and two `decode_step`s.
+Tolerances: float32 variants at 2e-5 (the same float32 arithmetic, sums in
+another order); bfloat16 at 2e-2 (the reference's bf16 kernel tolerance:
+the two frameworks round bf16 activations at slightly different places, one
+bf16 ulp each, and the residual stream carries them through the layers);
+for the Mamba2, RWKV6 and MoE stacks in bfloat16 `DEEP_BF16`
+(`_torch_inputs.py`, where the reference's own spread is measured).
 """
 import dataclasses
 
@@ -16,7 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_inputs import TOL
+from _torch_inputs import DEEP_BF16, TOL
 
 from repro.configs import ARCHS as REF_ARCHS
 from repro.configs import SHAPES as REF_SHAPES
@@ -36,9 +40,9 @@ from repro_torch.models.module import (ParamSpec, count_params,
                                        init_from_specs, param_bytes)
 
 B, S, MAX_LEN = 2, 12, 20
-DENSE = ["llama3.2-3b", "granite-34b"]
-UNSUPPORTED = ["whisper-large-v3", "rwkv6-3b", "zamba2-2.7b", "qwen2-vl-72b",
-               "deepseek-moe-16b", "deepseek-v2-236b"]
+DECODERS = ["llama3.2-3b", "granite-34b", "zamba2-2.7b", "rwkv6-3b",
+            "deepseek-moe-16b"]
+UNSUPPORTED = ["whisper-large-v3", "qwen2-vl-72b", "deepseek-v2-236b"]
 
 
 @pytest.mark.parametrize("name", sorted(REF_ARCHS))
@@ -84,7 +88,7 @@ def _variant(name, dtype):
     return rc, arch_config_from_dict(dataclasses.asdict(rc))
 
 
-@pytest.fixture(scope="module", params=[(n, d) for n in DENSE
+@pytest.fixture(scope="module", params=[(n, d) for n in DECODERS
                                         for d in ("float32", "bfloat16")],
                 ids=lambda p: f"{p[0]}-{p[1]}")
 def run(request):
@@ -124,17 +128,20 @@ def run(request):
         port[f"decode{i}"], caches = zoo.decode_step(
             pc, params, torch.as_tensor(steps[i]).long()[:, None], caches,
             S + i)
-    return dtype, ref, port
+    return name, dtype, ref, port
 
 
 @pytest.mark.parametrize("what", ["hidden", "prefill", "decode0", "decode1"])
 def test_dense_decoder_matches_the_reference(run, what):
-    dtype, ref, port = run
+    name, dtype, ref, port = run
     got, want = port[what], np.asarray(ref[what], np.float32)
     if what != "hidden":
         assert got.dtype == torch.float32      # logits are float32
     assert got.shape == want.shape
-    np.testing.assert_allclose(got.float().numpy(), want, **TOL[dtype])
+    tol = TOL[dtype]
+    if dtype == "bfloat16" and name not in DECODERS[:2]:
+        tol = DEEP_BF16["hidden" if what == "hidden" else "logits"]
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
 
 
 @pytest.mark.parametrize("name", UNSUPPORTED)
@@ -157,3 +164,20 @@ def test_kv_seq_shard_and_kernels_off_the_card_raise():
         zoo.decode_step(cfg, params, tok, caches, 0, kv_seq_shard=True)
     with pytest.raises(ValueError, match="kernels=True"):
         zoo.decode_step(cfg, params, tok, caches, 0, kernels=True)
+
+
+@pytest.mark.parametrize("name,kernel,per_prefill,per_step", [
+    ("llama3.2-3b", "flash_attention", 28, 0),
+    ("llama3.2-3b", "decode_attention", 0, 28),
+    ("zamba2-2.7b", "ssd_scan", 54, 0),
+    ("zamba2-2.7b", "flash_attention", 9, 0),
+    ("rwkv6-3b", "rwkv6_scan", 32, 0),
+    ("deepseek-moe-16b", "moe_gemm", 81, 81)])
+def test_kernel_launches_per_pass_of_the_served_models(name, kernel,
+                                                       per_prefill, per_step):
+    # one launch per layer that runs the kernel: 28 attention layers, 54
+    # Mamba2 layers under 9 shared-block applications, 32 RWKV6 layers,
+    # three expert products in each of 27 MoE layers
+    pre, step = zoo.kernel_launches(ARCHS[name])
+    assert (pre.get(kernel, 0), step.get(kernel, 0)) == (per_prefill,
+                                                         per_step)
