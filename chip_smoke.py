@@ -8,11 +8,13 @@ non-zero and prints no `ok` line:
 1. device  — the card (`nvidia-smi`), torch and CUDA versions;
 2. build   — every kernel under src/repro_torch/kernels/csrc, one nvcc per
              source, all started together, with ptxas' registers and spills;
-3. kernel  — each kernel against its plain PyTorch version on the card
+3. host    — one rmsnorm wrapper call's host time split into its parts;
+   kernel  — each kernel against its plain PyTorch version on the card
              (serialize_prefix, rmsnorm, decode_attention, flash_attention,
              ssd_scan, rwkv6_scan, moe_gemm), with its times at the main
-             paths' shapes, its bound and the time of one PyTorch call
-             computing the same function;
+             paths' shapes, its bound and the time (events and device) of
+             one PyTorch call computing the same function; moe_gemm's bf16
+             serving shapes must run its tensor-core kernel;
 4. fitness — BatchedFitness on the card, kernel path against the plain path
              and against the CPU, launch counts, genomes/s, kernel times;
 5. explore — Stream's explore(prefilter=True) on the card, the DSE main
@@ -97,21 +99,32 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
-    """Mean ms per call of `fn` over `iters` back-to-back calls, by CUDA
-    events on the current stream."""
+def cuda_ms(*fns, iters: int = 200, warmup: int = 20,
+            windows: int = 1) -> float | list[float]:
+    """Mean ms per call of each of `fns` over `iters` back-to-back calls, by
+    CUDA events on the current stream. With several `windows` of `iters`
+    calls, the median window of each, the functions' windows taken in turn
+    (a, b, a, b, ...), so that one stall of the shared host neither stands
+    for a call's cost nor falls on one function only. One function gives a
+    float, several a list."""
     import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    means = [[] for _ in fns]
+    for _ in range(windows):
+        for fn, m in zip(fns, means):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            m.append(start.elapsed_time(end) / iters)
+    out = [float(np.median(m)) for m in means]
+    return out[0] if len(fns) == 1 else out
 
 
 def queues(rng, rows: int, w: int, device):
@@ -172,6 +185,14 @@ def kernel_device_ms(fn, name: str, iters: int = 100) -> float | None:
     return sum(us for us, _ in hits) / 1e3 / sum(c for _, c in hits)
 
 
+def call_device_ms(fn, iters: int = 100) -> float:
+    """Device ms of one call of `fn`: the profiler's sum over every kernel
+    it launches (a library call may launch several), over `iters` calls."""
+    _, rows = device_times(lambda: [fn() for _ in range(iters)])
+    return sum(us for us, k, _ in rows if not k.startswith("aten::")) / 1e3 \
+        / iters
+
+
 def profile_scores(bf, pop) -> dict:
     """Where one scores() call spends its time on the card: wall time, the
     device's busy time (sum of kernel times) and its idle share, and the
@@ -226,36 +247,129 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float,
 
 def timed(kern, plain, library, name: str, work, plain_iters: int = 200,
           iters: int = 200) -> dict:
-    """Events ms of the kernel's wrapper, the profiler's device ms of its
-    kernel, the plain version's and the library call's events ms (None
-    where no single PyTorch call computes the function), and the bound of
-    the work."""
+    """Events ms of the kernel's wrapper and of the library call (median of
+    5 windows each, taken in turn), the profiler's device ms of the kernel
+    and of the library call (the sum over the kernels it launches), the
+    plain version's events ms, and the bound of the work. The library's
+    numbers are None where no single PyTorch call computes the function."""
     b = bound(*work)
-    return {"ms": cuda_ms(kern, iters), "device_ms": kernel_device_ms(kern, name),
-            "plain_ms": cuda_ms(plain, plain_iters, max(plain_iters // 10, 1)),
-            "library_ms": None if library is None else cuda_ms(library),
+    if library is None:
+        ms, library_ms = cuda_ms(kern, iters=iters, windows=5), None
+    else:
+        ms, library_ms = cuda_ms(kern, library, iters=iters, windows=5)
+    return {"ms": ms, "device_ms": kernel_device_ms(kern, name),
+            "plain_ms": cuda_ms(plain, iters=plain_iters,
+                                warmup=max(plain_iters // 10, 1)),
+            "library_ms": library_ms,
+            "library_device_ms": None if library is None
+            else call_device_ms(library),
             "bound_ms": b[0], "bound_by": b[1]}
+
+
+def host_breakdown(dev, n: int = 10000) -> dict:
+    """Host us of one rmsnorm wrapper call at a decode step's (4, 3072) in
+    bf16, split into its parts, each part alone over `n` calls timed with
+    perf_counter_ns, the median of 3 rounds (an empty call's cost included
+    in each). The `pr13`
+    parts are what the launch path before this one did instead: a set of
+    torch.devices, a torch.cuda.device context around the launch, a
+    torch.cuda.Stream built per call, and a ctypes call of the same C
+    launcher in the same library with its eleven argtypes."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm as rm
+    rng = np.random.default_rng(9)
+    x = tensor(rng, (SLOTS, 3072), "bfloat16", dev)
+    s = tensor(rng, (3072,), "bfloat16", dev)
+    out = torch.empty_like(x)
+    lib = build.load_library("rmsnorm")
+    index = build.cuda_index(x, s)
+    args = (x.data_ptr(), s.data_ptr(), out.data_ptr(), SLOTS, 3072, 1e-5, 1,
+            1, 1, index, build.stream_of(index))
+    no_launch = (*args[:3], 0, *args[4:])      # rows 0: refused, no launch
+    c_launcher = ctypes.CDLL(str(build.library_path("rmsnorm"))).repro_rmsnorm
+    c_launcher.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    c_launcher.restype = ctypes.c_int
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {
+        "empty call": lambda: None,
+        "shape checks": lambda: s.dim() != 1 or x.dim() == 0 or
+        s.shape[0] != x.shape[-1],
+        "cuda_index": lambda: build.cuda_index(x, s),
+        "dtype_code x2": lambda: (build.dtype_code("x", x),
+                                  build.dtype_code("scale", s)),
+        "is_contiguous x2": lambda: x.is_contiguous() and s.is_contiguous(),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "variant": lambda: rm.variant(x, s),
+        "stream_of": lambda: build.stream_of(index),
+        "data_ptr x3": lambda: (x.data_ptr(), s.data_ptr(), out.data_ptr()),
+        "load_library": lambda: build.load_library("rmsnorm"),
+        "module launch": lambda: lib.launch(*args),
+        "module call, no launch (rows 0)": lambda: lib.launch(*no_launch),
+        "check": lambda: build.check(lib, 0, "rmsnorm"),
+        "pr13 one_device": lambda: len({t.device for t in (x, s)}),
+        "pr13 device.type checks": lambda: x.device.type in ("cpu", "cuda"),
+        "pr13 torch.cuda.device context": device_context,
+        "pr13 stream_of (torch.cuda.Stream)":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "pr13 ctypes launch": lambda: c_launcher(*args),
+        "pr13 ctypes call, no launch (rows 0)":
+            lambda: c_launcher(*no_launch),
+        "whole wrapper": lambda: rm.rmsnorm_fwd(x, s),
+    }
+    us = {}
+    for name, fn in parts.items():
+        for _ in range(200):
+            fn()
+        rounds = []
+        for _ in range(3):       # the median of 3 rounds of n calls
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(n):
+                fn()
+            rounds.append((time.perf_counter_ns() - t0) / n / 1e3)
+        torch.cuda.synchronize()
+        us[name] = float(np.median(rounds))
+    return {"phase": "host", "wrapper": "rmsnorm_fwd", "shape": [SLOTS, 3072],
+            "dtype": "bfloat16", "calls": n, "rounds": 3, "us_per_call": us}
 
 
 def check_rmsnorm(dev) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ref import rmsnorm_ref
-    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd, variant
     rng = np.random.default_rng(2)
     errs = {}
     for shape in [(SLOTS, 1, 3072), (SLOTS, PROMPT, 3072), (4, 37, 96),
-                  (1, 300, 64)]:
+                  (1, 300, 64), (SLOTS, 2560), (SLOTS, PROMPT, 5120),
+                  (3, 100)]:
         for dtype in ("float32", "bfloat16"):
             for sdtype in sorted({dtype, "float32"}):
                 x = tensor(rng, shape, dtype, dev)
                 s = tensor(rng, shape[-1:], sdtype, dev)
                 errs[f"{shape}-{dtype}-{sdtype}"] = held(
                     rmsnorm_fwd(x, s), rmsnorm_ref(x, s), dtype)
+    # a row off the 16-byte grid takes the scalar path
+    x = tensor(rng, (SLOTS * 3072 + 1,), "bfloat16", dev)[1:].view(SLOTS,
+                                                                   3072)
+    s = tensor(rng, (3072,), "bfloat16", dev)
+    assert variant(x, s) == "scalar"
+    errs["misaligned-bfloat16"] = held(rmsnorm_fwd(x, s), rmsnorm_ref(x, s),
+                                       "bfloat16")
     times = {}
     for rows in (SLOTS, SLOTS * PROMPT):     # a decode step, a prefill
         x = tensor(rng, (rows, 3072), "bfloat16", dev)
         s = tensor(rng, (3072,), "bfloat16", dev)
+        assert variant(x, s) == "vector"
         n_bytes = 2 * x.numel() * 2 + s.numel() * 2
         times[rows] = timed(lambda: rmsnorm_fwd(x, s),
                             lambda: rmsnorm_ref(x, s),
@@ -505,7 +619,7 @@ def check_rwkv6_scan(dev) -> dict:
 
 def check_moe_gemm(dev) -> dict:
     import torch
-    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.kernels.moe_gemm import moe_gemm, variant
     from repro_torch.kernels.ref import MOE_TOL, moe_gemm_ref
     gen = torch.Generator(device=dev).manual_seed(8)
 
@@ -517,24 +631,36 @@ def check_moe_gemm(dev) -> dict:
     for E, C, K, N in ((2, 32, 64, 48), (4, 64, 96, 80), (1, 128, 128, 128),
                        (64, 8, 2048, 1408), (64, 8, 1408, 2048),
                        (64, 60, 2048, 1408), (64, 60, 1408, 2048),
-                       (3, 17, 33, 65)):
+                       (3, 17, 33, 65), (2, 1, 64, 48), (2, 9, 64, 48),
+                       (2, 65, 64, 48)):
         for dtype in ("float32", "bfloat16"):
             x, w = randn((E, C, K), dtype, 0.3), randn((E, K, N), dtype, 0.3)
-            errs[f"{E}x{C}x{K}x{N}-{dtype}"] = held_tol(
+            errs[f"{E}x{C}x{K}x{N}-{dtype}-{variant(x, w)}"] = held_tol(
                 moe_gemm(x, w), moe_gemm_ref(x, w), MOE_TOL[dtype])
+    # bf16 off the 16-byte grid runs the CUDA-core kernel
+    x = randn((2 * 16 * 64 + 1,), "bfloat16", 0.3)[1:].view(2, 16, 64)
+    w = randn((2, 64, 48), "bfloat16", 0.3)
+    assert variant(x, w) == "fma"
+    errs["misaligned-bfloat16-fma"] = held_tol(
+        moe_gemm(x, w), moe_gemm_ref(x, w), MOE_TOL["bfloat16"])
     times = {}
-    for C in (8, 60):    # deepseek-moe-16b's decode step, its prefill
-        x = randn((64, C, 2048), "bfloat16", 1.0)
-        w = randn((64, 2048, 1408), "bfloat16", 0.02)
-        times[C] = timed(lambda: moe_gemm(x, w), lambda: moe_gemm_ref(x, w),
-                         lambda: torch.bmm(x, w), "moe_gemm_kernel",
-                         ((x.numel() + w.numel() + 64 * C * 1408) * 2,
-                          2 * 64 * C * 2048 * 1408, BF16_OPS_PER_S),
-                         plain_iters=20, iters=50)
-        times[C]["max_abs_err"] = held_tol(moe_gemm(x, w),
-                                           moe_gemm_ref(x, w),
-                                           MOE_TOL["bfloat16"])
-    return {"errors": errs, "main": times[8], "times": times,
+    # deepseek-moe-16b's decode step and prefill, gate/up and down products
+    for C, K, N in ((8, 2048, 1408), (60, 2048, 1408), (8, 1408, 2048),
+                    (60, 1408, 2048)):
+        x = randn((64, C, K), "bfloat16", 1.0)
+        w = randn((64, K, N), "bfloat16", 0.02)
+        assert variant(x, w) == "mma"
+        t = timed(lambda: moe_gemm(x, w), lambda: moe_gemm_ref(x, w),
+                  lambda: torch.bmm(x, w), "moe_gemm_kernel_mma",
+                  ((x.numel() + w.numel() + 64 * C * N) * 2,
+                   2 * 64 * C * K * N, BF16_OPS_PER_S),
+                  plain_iters=20, iters=50)
+        assert t["device_ms"] is not None, "the tensor-core kernel never ran"
+        t["variant"] = "mma"
+        t["max_abs_err"] = held_tol(moe_gemm(x, w), moe_gemm_ref(x, w),
+                                    MOE_TOL["bfloat16"])
+        times[f"{C}x{K}x{N}"] = t
+    return {"errors": errs, "main": times["8x2048x1408"], "times": times,
             "tolerance": MOE_TOL, "shape": [64, 8, 2048, 1408]}
 
 
@@ -635,6 +761,9 @@ def serve_phase(dev, counters, arch: str) -> dict:
     step_ms, rows = device_times(lambda: engine.decode_once(tok).tolist())
     kernels = [r for r in rows if not r[1].startswith("aten::")]
     busy_ms = sum(r[0] for r in kernels) / 1e3
+    if launches["moe_gemm"]:   # the bf16 serving shapes run on tensor cores
+        names = [k for _, k, _ in kernels if "moe_gemm_kernel" in k]
+        assert names and all("moe_gemm_kernel_mma" in k for k in names), names
     n_bytes = param_bytes(specs)
     out = {
         "phase": "serve", "arch": arch, "params": cfg.param_count(),
@@ -761,7 +890,8 @@ def main() -> int:
     for rows, w in TIMED_SHAPES:
         free0, release, dur = queues(rng, rows, w, dev)
         times[(rows, w)] = {
-            "ms": cuda_ms(lambda: serialize_prefix(free0, release, dur)),
+            "ms": cuda_ms(lambda: serialize_prefix(free0, release, dur),
+                          windows=5),
             "plain_ms": cuda_ms(
                 lambda: serialize_prefix_ref(free0, release, dur)),
             "device_ms": kernel_device_ms(
@@ -776,6 +906,7 @@ def main() -> int:
                                  "bound_ms": v["bound"][0]}
                     for (r, w), v in times.items()}})
 
+    emit(host_breakdown(dev))
     serving = {"rmsnorm": check_rmsnorm(dev),
                "decode_attention": check_decode_attention(dev),
                "flash_attention": check_flash_attention(dev),
@@ -901,6 +1032,7 @@ def main() -> int:
         "ms": t["ms"], "device_ms": t["device_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
         "bound_by": t["bound"][1], "library_ms": None,
+        "library_device_ms": None,
         "shape": list(TIMED_SHAPES[0])}]
     # each serving kernel's launches on the main path of its own family
     # (llama3.2-3b for the first three), with every path's count beside
@@ -925,7 +1057,11 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": m["library_ms"], "shape": serving[name]["shape"]}
+            "library_ms": m["library_ms"],
+            "library_device_ms": m["library_device_ms"],
+            "shape": serving[name]["shape"]}
+        if "variant" in m:
+            row["variant"] = m["variant"]
         assert row["launches"] > 0, row
         rows.append(row)
     emit({"kernels": rows})

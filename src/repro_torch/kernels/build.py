@@ -1,23 +1,38 @@
 """Build and bind the port's CUDA kernels.
 
-Each `csrc/<name>.cu` has a plain C interface.  At first use it is compiled
-with `nvcc` for Hopper (`sm_90a`) into a shared library under
-`build/torch_kernels/` at the root of the checkout (or under
-`$REPRO_TORCH_BUILD_DIR`), named by a hash of its source so an edited source
-is rebuilt, and loaded with `ctypes`.  Nothing here runs on import: the CPU
-tests import every module on machines without `nvcc`.
+Each `csrc/<name>.cu` has a C launcher, and `csrc/launch.cuh` makes its
+library the Python extension module `repro_kernel_<name>`, whose `launch`
+converts its arguments to the launcher's parameter types and returns the
+launcher's cudaError_t.  At first use a source is compiled with `nvcc` for
+Hopper (`sm_90a`) against Python's C headers (not PyTorch's, so it builds in
+seconds) into a shared library under `build/torch_kernels/` at the root of
+the checkout (or under `$REPRO_TORCH_BUILD_DIR`), named by a hash of its
+source, the shared headers (`csrc/*.cuh`) and the interpreter's ABI so an
+edited source is rebuilt, and imported.  Nothing here runs on import: the
+CPU tests import every module on machines without `nvcc`.
+
+The launch path that all seven wrappers share is kept cheap, because the
+serving steps are bound by the host: `cuda_index` finds the tensors' device
+from integers, `stream_of` reads the raw current stream, the module's
+`launch` converts the arguments in C, and each launcher takes the device
+index and makes it current itself, so no wrapper enters a device context.
+A launch stays safe to capture in a CUDA graph: no host sync, outputs from
+PyTorch's allocator, and the kernel on the current stream.
 """
 from __future__ import annotations
 
-import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import ModuleType
 
 import torch
 
@@ -25,7 +40,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, ModuleType] = {}
 build_seconds: dict[str, float] = {}   # name -> wall time of its nvcc run
 ptxas_info: dict[str, str] = {}        # name -> what `nvcc -Xptxas -v` said
 
@@ -50,8 +65,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(ARCH_FLAGS).encode()).hexdigest()[:12]
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    abi = sysconfig.get_config_var("EXT_SUFFIX") or ""
+    tag = hashlib.sha256(src + " ".join((*ARCH_FLAGS, abi)).encode()
+                         ).hexdigest()[:12]
     return build_dir() / f"lib{name}-{tag}.so"
 
 
@@ -64,7 +82,8 @@ def compile_library(name: str) -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           f"-I{sysconfig.get_paths()['include']}", "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -88,21 +107,28 @@ def build_all() -> dict[str, Path]:
         return dict(zip(names, pool.map(compile_library, names)))
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built at first use."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(compile_library(name)))
-            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+def load_library(name: str) -> ModuleType:
+    """The extension module of `csrc/<name>.cu` (`launch`, `error_string`),
+    built and imported at first use."""
+    lib = _libs.get(name)
+    if lib is not None:
         return lib
+    with _lock:
+        if name not in _libs:
+            module = f"repro_kernel_{name}"
+            loader = importlib.machinery.ExtensionFileLoader(
+                module, str(compile_library(name)))
+            lib = importlib.util.module_from_spec(
+                importlib.util.spec_from_loader(module, loader))
+            loader.exec_module(lib)
+            _libs[name] = lib
+        return _libs[name]
 
 
-def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+def check(lib: ModuleType, code: int, what: str) -> None:
     """Raise when a launcher returned an error from cudaGetLastError()."""
     if code != 0:
-        msg = lib.repro_cuda_error_string(code).decode()
+        msg = lib.error_string(code)
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {code})")
 
 
@@ -118,14 +144,29 @@ def dtype_code(what: str, t: torch.Tensor) -> int:
     return code
 
 
-def one_device(**tensors: torch.Tensor) -> torch.device:
-    """The device all `tensors` lie on; raises when they lie on several."""
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1:
-        raise ValueError(f"inputs lie on several devices: {devices}")
-    return devices.pop()
+def cuda_index(*tensors: torch.Tensor) -> int:
+    """The index of the CUDA device that all `tensors` lie on, or -1 when they
+    all lie on the CPU; raises when they lie on several devices or on one
+    of another type.  Compares integers, so a launch pays no set of
+    `torch.device`s."""
+    first = tensors[0]
+    index, on_cuda = first.get_device(), first.is_cuda
+    for t in tensors[1:]:
+        if t.get_device() != index or t.is_cuda != on_cuda:
+            raise ValueError(f"inputs lie on several devices: "
+                             f"{sorted({str(t.device) for t in tensors})}")
+    if on_cuda:
+        return index
+    devices = {t.device.type for t in tensors}
+    if devices != {"cpu"}:
+        raise ValueError(f"no kernel for tensors on {sorted(devices)}")
+    return -1
 
 
-def stream_of(device: torch.device) -> int:
-    """The current CUDA stream of `device`, as the launchers take it."""
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_of(index: int) -> int:
+    """The current CUDA stream of device `index`, as the launchers take it:
+    the stream a CUDA graph captures while it records."""
+    # private, but the only call that skips building a torch.cuda.Stream
+    # (what torch.cuda.current_stream(index).cuda_stream does every call);
+    # PyTorch's own generated kernels launch through it
+    return torch._C._cuda_getCurrentRawStream(index)

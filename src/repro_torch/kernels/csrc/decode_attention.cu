@@ -35,8 +35,13 @@
 // of cache: 2.1 MB at the first step (c = 129), 0.63 us at 3.35 TB/s, and
 // 2.75 MB at c = T. It launches 28 times per decode step (once per layer).
 //
-// Plain C interface, loaded with ctypes: the launcher returns
-// cudaGetLastError() and the wrapper raises when it is not cudaSuccess.
+// A C launcher, called from Python through the extension module that
+// csrc/launch.cuh makes of the library: it returns cudaGetLastError() and
+// the wrapper raises when it is not cudaSuccess.
+
+// launch.cuh includes Python.h, which comes before the standard headers
+#include "launch.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -183,12 +188,13 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). Strides are
 // in elements, three per tensor (B, H, T; T is unused for q and out).
-// Launches on `stream` without synchronising; returns cudaGetLastError().
+// Launches on `device`'s `stream` without synchronising; returns
+// cudaGetLastError().
 int repro_decode_attention(const void* q, const void* k, const void* v,
                            void* out, const int64_t* strides, int batch,
                            int hq, int hkv, int t_len, int d,
                            int64_t cur_len, float scale, int dtype,
-                           void* stream) {
+                           int device, void* stream) {
   if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || t_len <= 0 ||
       d <= 0 || d > 256 || (int64_t)batch * hq > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
@@ -196,6 +202,8 @@ int repro_decode_attention(const void* q, const void* k, const void* v,
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
+  repro::DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   cudaStream_t s = (cudaStream_t)stream;
   const int group = hq / hkv;
   if (dtype == 0)
@@ -207,8 +215,6 @@ int repro_decode_attention(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
 }  // extern "C"
+
+REPRO_PY_MODULE(decode_attention, repro_decode_attention)

@@ -42,8 +42,13 @@
 // 3.35 TB/s: bytes bound it. It launches 28 times per prefill (once per
 // layer). A wgmma/TMA version is later work.
 //
-// Plain C interface, loaded with ctypes: the launcher returns
-// cudaGetLastError() and the wrapper raises when it is not cudaSuccess.
+// A C launcher, called from Python through the extension module that
+// csrc/launch.cuh makes of the library: it returns cudaGetLastError() and
+// the wrapper raises when it is not cudaSuccess.
+
+// launch.cuh includes Python.h, which comes before the standard headers
+#include "launch.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -241,12 +246,13 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). Strides are
-// in elements, three per tensor (B, H, S|T). Launches on `stream` without
-// synchronising; returns cudaGetLastError().
+// in elements, three per tensor (B, H, S|T). Launches on `device`'s
+// `stream` without synchronising; returns cudaGetLastError().
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* out, const int64_t* strides, int batch,
                           int hq, int hkv, int s_len, int t_len, int d,
-                          int causal, float scale, int dtype, void* stream) {
+                          int causal, float scale, int dtype, int device,
+                          void* stream) {
   if (batch <= 0 || batch > 65535 || hq <= 0 || hq > 65535 || hkv <= 0 ||
       hq % hkv != 0 || s_len <= 0 || t_len <= 0 || d <= 0 || d > 256)
     return (int)cudaErrorInvalidValue;
@@ -254,6 +260,8 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
+  repro::DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   cudaStream_t s = (cudaStream_t)stream;
   const int group = hq / hkv;
   if (dtype == 0)
@@ -265,8 +273,6 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
 }  // extern "C"
+
+REPRO_PY_MODULE(flash_attention, repro_flash_attention)

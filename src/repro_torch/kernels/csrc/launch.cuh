@@ -1,0 +1,121 @@
+// What every launcher of the port shares. Each csrc/<name>.cu includes this
+// once and is built into a library of its own (kernels/build.py), which
+// REPRO_PY_MODULE below makes a Python extension module.
+//
+// Why not ctypes: ctypes converts each argument of a call through its
+// argtypes, about 3.3 us for rmsnorm's eleven on the H100's host, more than
+// the kernel's device time. Here the conversions are typed at compile time
+// from the launcher's own signature and cost a few hundred nanoseconds.
+// Nothing here includes PyTorch's headers, so a library still builds in
+// seconds.
+#pragma once
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <climits>
+#include <tuple>
+#include <utility>
+
+namespace repro {
+
+// Makes `device` current for one launch and gives the caller's device back
+// after it, so the Python wrapper passes its tensors' device index and
+// enters no device context. Setting the device that is already current is
+// skipped; reading it costs no driver call.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) : device_(device) {
+    error_ = cudaGetDevice(&prev_);
+    if (error_ == cudaSuccess && prev_ != device_)
+      error_ = cudaSetDevice(device_);
+  }
+  ~DeviceGuard() {
+    if (prev_ >= 0 && prev_ != device_) cudaSetDevice(prev_);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+  int error() const { return (int)error_; }
+
+ private:
+  int device_;
+  int prev_ = -1;
+  cudaError_t error_;
+};
+
+// One launcher parameter from a Python object: a pointer from an int (None
+// is null), an integer from an int, a float from a float. A bad value sets
+// a Python error, which call() checks before it launches anything.
+template <typename T>
+struct FromPy;
+template <typename T>
+struct FromPy<T*> {
+  static T* get(PyObject* o) {
+    return o == Py_None ? nullptr : static_cast<T*>(PyLong_AsVoidPtr(o));
+  }
+};
+template <>
+struct FromPy<int> {
+  static int get(PyObject* o) {
+    const long v = PyLong_AsLong(o);
+    if (v < INT_MIN || v > INT_MAX)
+      PyErr_SetString(PyExc_OverflowError, "launcher argument exceeds int");
+    return (int)v;
+  }
+};
+template <>
+struct FromPy<int64_t> {
+  static int64_t get(PyObject* o) { return PyLong_AsLongLong(o); }
+};
+template <>
+struct FromPy<float> {
+  static float get(PyObject* o) { return (float)PyFloat_AsDouble(o); }
+};
+
+template <typename... P, size_t... I>
+PyObject* call(int (*fn)(P...), PyObject* const* args,
+               std::index_sequence<I...>) {
+  std::tuple<P...> values{FromPy<P>::get(args[I])...};   // left to right
+  if (PyErr_Occurred()) return nullptr;
+  return PyLong_FromLong(std::apply(fn, values));
+}
+
+// Calls the C launcher `fn` with Python's positional `args`, converted to
+// its parameters' types; returns its cudaError_t as an int.
+template <typename... P>
+PyObject* call(int (*fn)(P...), PyObject* const* args, Py_ssize_t n) {
+  if (n != (Py_ssize_t)sizeof...(P)) {
+    PyErr_Format(PyExc_TypeError, "the launcher takes %d arguments, not %zd",
+                 (int)sizeof...(P), n);
+    return nullptr;
+  }
+  return call(fn, args, std::index_sequence_for<P...>{});
+}
+
+}  // namespace repro
+
+// The library as the Python extension module `repro_kernel_<name>`, with
+// launch(*args) -> cudaError_t of `launcher`, and error_string(code).
+#define REPRO_PY_MODULE(name, launcher)                                       \
+  static PyObject* repro_py_launch(PyObject*, PyObject* const* args,          \
+                                   Py_ssize_t n) {                            \
+    return repro::call(launcher, args, n);                                    \
+  }                                                                           \
+  static PyObject* repro_py_error_string(PyObject*, PyObject* code) {         \
+    const long c = PyLong_AsLong(code);                                       \
+    if (c == -1 && PyErr_Occurred()) return nullptr;                          \
+    return PyUnicode_FromString(cudaGetErrorString((cudaError_t)c));          \
+  }                                                                           \
+  static PyMethodDef repro_py_methods[] = {                                   \
+      {"launch", (PyCFunction)(void (*)(void))repro_py_launch, METH_FASTCALL, \
+       "Launch the kernel; returns cudaGetLastError() as an int."},           \
+      {"error_string", repro_py_error_string, METH_O,                         \
+       "cudaGetErrorString of a cudaError_t."},                               \
+      {nullptr, nullptr, 0, nullptr}};                                        \
+  static PyModuleDef repro_py_module = {                                      \
+      PyModuleDef_HEAD_INIT, "repro_kernel_" #name, nullptr, -1,              \
+      repro_py_methods};                                                      \
+  PyMODINIT_FUNC PyInit_repro_kernel_##name(void) {                           \
+    return PyModule_Create(&repro_py_module);                                 \
+  }

@@ -38,8 +38,13 @@
 // exponentials) are under 5 us at the card's float32 peak, so bytes bound
 // it. It launches 32 times per prefill (once per layer).
 //
-// Plain C interface, loaded with ctypes: the launcher returns
-// cudaGetLastError() and the wrapper raises when it is not cudaSuccess.
+// A C launcher, called from Python through the extension module that
+// csrc/launch.cuh makes of the library: it returns cudaGetLastError() and
+// the wrapper raises when it is not cudaSuccess.
+
+// launch.cuh includes Python.h, which comes before the standard headers
+#include "launch.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -191,12 +196,12 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (r, k, v and o share it); logw, u and the
-// states are float32. s0 may be null. Launches on `stream` without
-// synchronising; returns cudaGetLastError().
+// states are float32. s0 may be null. Launches on `device`'s `stream`
+// without synchronising; returns cudaGetLastError().
 int repro_rwkv6_scan(const void* r, const void* k, const void* v,
                      const void* logw, const void* u, const void* s0, void* o,
                      void* s_out, int batch, int seqlen, int heads, int kd,
-                     int vd, int chunk, int dtype, void* stream) {
+                     int vd, int chunk, int dtype, int device, void* stream) {
   if (batch <= 0 || batch > 65535 || seqlen <= 0 || heads <= 0 || kd <= 0 ||
       vd <= 0 || chunk <= 0 || seqlen % chunk != 0)
     return (int)cudaErrorInvalidValue;
@@ -210,14 +215,14 @@ int repro_rwkv6_scan(const void* r, const void* k, const void* v,
   a.o = o;
   a.s_out = (float*)s_out;
   a.seqlen = seqlen, a.heads = heads, a.kd = kd, a.vd = vd, a.chunk = chunk;
+  repro::DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return launch<float>(a, batch, s);
   if (dtype == 1) return launch<__nv_bfloat16>(a, batch, s);
   return (int)cudaErrorInvalidValue;
 }
 
-const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
 }  // extern "C"
+
+REPRO_PY_MODULE(rwkv6_scan, repro_rwkv6_scan)

@@ -41,8 +41,13 @@
 // FMA, so on CUDA cores the operations bound it. It launches 54 times per
 // prefill (once per Mamba2 layer).
 //
-// Plain C interface, loaded with ctypes: the launcher returns
-// cudaGetLastError() and the wrapper raises when it is not cudaSuccess.
+// A C launcher, called from Python through the extension module that
+// csrc/launch.cuh makes of the library: it returns cudaGetLastError() and
+// the wrapper raises when it is not cudaSuccess.
+
+// launch.cuh includes Python.h, which comes before the standard headers
+#include "launch.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -198,13 +203,13 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y share it); dt, A and the
 // states are float32. strides: 10 element strides, x (B, S, H), dt (B, S,
-// H), B (B, S), C (B, S). s0 may be null. Launches on `stream` without
-// synchronising; returns cudaGetLastError().
+// H), B (B, S), C (B, S). s0 may be null. Launches on `device`'s
+// `stream` without synchronising; returns cudaGetLastError().
 int repro_ssd_scan(const void* x, const void* dt, const void* A,
                    const void* bm, const void* cm, const void* s0, void* y,
                    void* s_out, const int64_t* strides, int batch, int seqlen,
                    int heads, int p, int n, int chunk, int dtype,
-                   void* stream) {
+                   int device, void* stream) {
   if (batch <= 0 || batch > 65535 || seqlen <= 0 || heads <= 0 || p <= 0 ||
       n <= 0 || chunk <= 0 || seqlen % chunk != 0)
     return (int)cudaErrorInvalidValue;
@@ -222,14 +227,14 @@ int repro_ssd_scan(const void* x, const void* dt, const void* A,
   a.bb = strides[6], a.bs = strides[7];
   a.cb = strides[8], a.cs = strides[9];
   a.seqlen = seqlen, a.heads = heads, a.p = p, a.n = n, a.chunk = chunk;
+  repro::DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return launch<float>(a, batch, s);
   if (dtype == 1) return launch<__nv_bfloat16>(a, batch, s);
   return (int)cudaErrorInvalidValue;
 }
 
-const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
 }  // extern "C"
+
+REPRO_PY_MODULE(ssd_scan, repro_ssd_scan)

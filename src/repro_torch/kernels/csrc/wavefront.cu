@@ -30,8 +30,13 @@
 // or the whole scan over wavefronts, into one persistent kernel or a CUDA
 // graph is later work.
 //
-// Plain C interface, loaded with ctypes: the launcher returns
-// cudaGetLastError() and the wrapper raises when it is not cudaSuccess.
+// A C launcher, called from Python through the extension module that
+// csrc/launch.cuh makes of the library: it returns cudaGetLastError() and
+// the wrapper raises when it is not cudaSuccess.
+
+// launch.cuh includes Python.h, which comes before the standard headers
+#include "launch.cuh"
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,11 +100,14 @@ __global__ void serialize_prefix_kernel(const float* __restrict__ free0,
 
 extern "C" {
 
-// Launches on `stream` without synchronising; returns cudaGetLastError().
+// Launches on `device`'s `stream` without synchronising; returns
+// cudaGetLastError().
 int repro_serialize_prefix_f32(const float* free0, const float* release,
                                const float* dur, float* fin, float* new_free,
-                               int64_t rows, int w, void* stream) {
+                               int64_t rows, int w, int device, void* stream) {
   if (rows <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
+  repro::DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   const int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
   serialize_prefix_kernel<<<(unsigned)blocks, kWarpsPerBlock * kWarp, 0,
                             (cudaStream_t)stream>>>(free0, release, dur, fin,
@@ -107,8 +115,6 @@ int repro_serialize_prefix_f32(const float* free0, const float* release,
   return (int)cudaGetLastError();
 }
 
-const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
 }  // extern "C"
+
+REPRO_PY_MODULE(wavefront, repro_serialize_prefix_f32)

@@ -15,25 +15,13 @@ type before the PV product, so in bfloat16 the two differ by that rounding.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
-from repro_torch.kernels.build import (check, dtype_code, load_library,
-                                       one_device, stream_of)
+from repro_torch.kernels.build import (check, cuda_index, dtype_code,
+                                       load_library, stream_of)
 from repro_torch.kernels.ref import decode_attention_ref
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its launcher typed."""
-    lib = load_library("decode_attention")
-    fn = lib.repro_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
 
 
 def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,11 +39,9 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
     cur_len = int(cur_len)
-    device = one_device(q=q, k=k, v=v)
-    if device.type == "cpu":
+    index = cuda_index(q, k, v)
+    if index < 0:
         return decode_attention_ref(q, k, v, cur_len)
-    if device.type != "cuda":
-        raise ValueError(f"no decode_attention kernel for {device.type}")
     code = dtype_code("q", q)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v types differ: {q.dtype}, {k.dtype}, "
@@ -64,17 +50,16 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("the D axis must be contiguous and D <= 256")
     if q.numel() == 0 or T == 0:
         raise ValueError("decode_attention needs B, Hq, T and D >= 1")
-    out = torch.empty(q.shape, dtype=q.dtype, device=device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 12)(
         q.stride(0), q.stride(1), 0, k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1),
         0)
-    lib = _library()
-    with torch.cuda.device(device):
-        err = lib.repro_decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            strides, B, Hq, Hkv, T, D, cur_len, 1.0 / math.sqrt(D), code,
-            stream_of(device))
+    lib = load_library("decode_attention")
+    err = lib.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ctypes.addressof(strides), B, Hq, Hkv, T, D, cur_len,
+        1.0 / math.sqrt(D), code, index, stream_of(index))
     check(lib, err, "decode_attention")
     decode_attention_fwd.launches += 1
     return out

@@ -15,25 +15,13 @@ so in bfloat16 the two differ by that rounding.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
-from repro_torch.kernels.build import (check, dtype_code, load_library,
-                                       one_device, stream_of)
+from repro_torch.kernels.build import (check, cuda_index, dtype_code,
+                                       load_library, stream_of)
 from repro_torch.kernels.ref import flash_attention_ref
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its launcher typed."""
-    lib = load_library("flash_attention")
-    fn = lib.repro_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -54,11 +42,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}")
     if causal and S != T:
         raise ValueError(f"causal attention needs S == T, not S={S}, T={T}")
-    device = one_device(q=q, k=k, v=v)
-    if device.type == "cpu":
+    index = cuda_index(q, k, v)
+    if index < 0:
         return flash_attention_ref(q, k, v, causal=causal)
-    if device.type != "cuda":
-        raise ValueError(f"no flash_attention kernel for {device.type}")
     code = dtype_code("q", q)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v types differ: {q.dtype}, {k.dtype}, "
@@ -74,12 +60,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
         k.stride(2), v.stride(0), v.stride(1), v.stride(2), out.stride(0),
         out.stride(1), out.stride(2))
-    lib = _library()
-    with torch.cuda.device(device):
-        err = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            strides, B, Hq, Hkv, S, T, D, int(causal), 1.0 / math.sqrt(D),
-            code, stream_of(device))
+    lib = load_library("flash_attention")
+    err = lib.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ctypes.addressof(strides), B, Hq, Hkv, S, T, D, int(causal),
+        1.0 / math.sqrt(D), code, index, stream_of(index))
     check(lib, err, "flash_attention")
     flash_attention_fwd.launches += 1
     return out

@@ -5,29 +5,30 @@
 A CPU tensor goes to the plain version (`repro_torch.kernels.ref.moe_gemm_ref`);
 a CUDA tensor goes to the kernel, or the wrapper raises.
 `moe_gemm.launches` counts the kernel's launches, and nothing else.
-The kernel takes any C, K and N.
+
+Two kernels take a CUDA call, and `variant` names the one, openly by dtype,
+shape and alignment: "mma" (`moe_gemm_kernel_mma`, bf16 tensor cores fed by
+a cp.async weight stream) for bfloat16 with K and N multiples of 8 and x
+and w 16-byte aligned, which the serving path always is; "fma"
+(`moe_gemm_kernel_fma`, CUDA cores, any C, K and N) for float32 and every
+other bfloat16 call.  Both sum in float32 and round the output once.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from repro_torch.kernels.build import (check, dtype_code, load_library,
-                                       one_device, stream_of)
+from repro_torch.kernels.build import (check, cuda_index, dtype_code,
+                                       load_library, stream_of)
 from repro_torch.kernels.ref import moe_gemm_ref
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its launcher typed."""
-    lib = load_library("moe_gemm")
-    fn = lib.repro_moe_gemm
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+def variant(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel a call on ``x`` (E, C, K) and ``w`` (E, K, N) of one type
+    runs: "mma" or "fma" (see the module's docstring)."""
+    if x.dtype == torch.bfloat16 and x.shape[2] % 8 == 0 and \
+            w.shape[2] % 8 == 0 and (x.data_ptr() | w.data_ptr()) % 16 == 0:
+        return "mma"
+    return "fma"
 
 
 def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -39,11 +40,9 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"{tuple(w.shape)}")
     E, C, K = x.shape
     N = w.shape[2]
-    device = one_device(x=x, w=w)
-    if device.type == "cpu":
+    index = cuda_index(x, w)
+    if index < 0:
         return moe_gemm_ref(x, w)
-    if device.type != "cuda":
-        raise ValueError(f"no moe_gemm kernel for {device.type}")
     code = dtype_code("x", x)
     if w.dtype != x.dtype:
         raise TypeError(f"x and w types differ: {x.dtype}, {w.dtype}")
@@ -54,11 +53,10 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if E > 65535 or max(C, K, N) >= 2 ** 31:
         raise ValueError(f"at most 65535 experts and 2**31 - 1 rows, "
                          f"columns and depth, not {tuple(x.shape)}, {N}")
-    out = torch.empty((E, C, N), dtype=x.dtype, device=device)
-    lib = _library()
-    with torch.cuda.device(device):
-        err = lib.repro_moe_gemm(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                 E, C, K, N, code, stream_of(device))
+    out = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
+    lib = load_library("moe_gemm")
+    err = lib.launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, K, N,
+                     code, variant(x, w) == "mma", index, stream_of(index))
     check(lib, err, "moe_gemm")
     moe_gemm.launches += 1
     return out

@@ -15,13 +15,10 @@ TPU kernel's wrapper does (`rwkv6_scan.py:69`).
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from repro_torch.kernels.build import (SMEM_LIMIT, check, dtype_code,
-                                       load_library, one_device, stream_of)
+from repro_torch.kernels.build import (SMEM_LIMIT, check, cuda_index,
+                                       dtype_code, load_library, stream_of)
 from repro_torch.kernels.ref import rwkv6_scan_ref
 
 LOGW_MIN = -6.0  # per-step log-decay clamp (numerical guard, documented)
@@ -32,17 +29,6 @@ def smem_bytes(K: int, V: int, L: int) -> int:
     (L, K+1) tiles (r, k, cum, cum_ex, r_dec, k_dec), the (L, V) values,
     the (K, V) state, the (L, L) scores and the bonus vector of L."""
     return 4 * (6 * L * (K + 1) + L * V + K * V + L * L + L)
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its launcher typed."""
-    lib = load_library("rwkv6_scan")
-    fn = lib.repro_rwkv6_scan
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -73,11 +59,9 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors = dict(r=r, k=k, v=v, logw=logw, u=u)
     if initial_state is not None:
         tensors["initial_state"] = initial_state
-    device = one_device(**tensors)
-    if device.type == "cpu":
+    index = cuda_index(*tensors.values())
+    if index < 0:
         return rwkv6_scan_ref(r, k, v, logw, u, initial_state)
-    if device.type != "cuda":
-        raise ValueError(f"no rwkv6_scan kernel for {device.type}")
     code = dtype_code("r", r)
     if k.dtype != r.dtype or v.dtype != r.dtype:
         raise TypeError(f"r, k, v types differ: {r.dtype}, {k.dtype}, "
@@ -97,15 +81,14 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B > 65535:
         raise ValueError(f"at most 65535 batches, not {B}")
     logw = torch.clamp(logw.float(), LOGW_MIN, 0.0).contiguous()
-    o = torch.empty((B, S, H, V), dtype=r.dtype, device=device)
-    s_out = torch.empty((B, H, K, V), dtype=torch.float32, device=device)
+    o = torch.empty((B, S, H, V), dtype=r.dtype, device=r.device)
+    s_out = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
     s0 = None if initial_state is None else initial_state.data_ptr()
-    lib = _library()
-    with torch.cuda.device(device):
-        err = lib.repro_rwkv6_scan(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-            u.data_ptr(), s0, o.data_ptr(), s_out.data_ptr(), B, S, H, K, V,
-            L, code, stream_of(device))
+    lib = load_library("rwkv6_scan")
+    err = lib.launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        u.data_ptr(), s0, o.data_ptr(), s_out.data_ptr(), B, S, H, K, V, L,
+        code, index, stream_of(index))
     check(lib, err, "rwkv6_scan")
     rwkv6_scan.launches += 1
     return o, s_out

@@ -15,12 +15,11 @@ here is its function.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from repro_torch.kernels.build import (SMEM_LIMIT, check, dtype_code,
-                                       load_library, one_device, stream_of)
+from repro_torch.kernels.build import (SMEM_LIMIT, check, cuda_index,
+                                       dtype_code, load_library, stream_of)
 from repro_torch.kernels.ref import ssd_scan_ref
 
 
@@ -30,17 +29,6 @@ def smem_bytes(P: int, N: int, L: int) -> int:
     (P, N+1) state, the (L, P) x*dt tile, the (L, N+1) B and C tiles, the
     (L, L) score tile and three vectors of L."""
     return 4 * (P * (N + 1) + L * P + 2 * L * (N + 1) + L * L + 3 * L)
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its launcher typed."""
-    lib = load_library("ssd_scan")
-    fn = lib.repro_ssd_scan
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -74,11 +62,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     tensors = dict(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm)
     if initial_state is not None:
         tensors["initial_state"] = initial_state
-    device = one_device(**tensors)
-    if device.type == "cpu":
+    index = cuda_index(*tensors.values())
+    if index < 0:
         return ssd_scan_ref(x, dt, A, Bm, Cm, initial_state)
-    if device.type != "cuda":
-        raise ValueError(f"no ssd_scan kernel for {device.type}")
     code = dtype_code("x", x)
     if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"x, B, C types differ: {x.dtype}, {Bm.dtype}, "
@@ -99,18 +85,18 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("ssd_scan needs B, S, H, P and N >= 1")
     if Bsz > 65535:
         raise ValueError(f"at most 65535 batches, not {Bsz}")
-    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=device)
-    s_out = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=device)
+    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
+    s_out = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     strides = (ctypes.c_int64 * 10)(
         x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
         dt.stride(2), Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1))
     s0 = None if initial_state is None else initial_state.data_ptr()
-    lib = _library()
-    with torch.cuda.device(device):
-        err = lib.repro_ssd_scan(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), s0, y.data_ptr(), s_out.data_ptr(), strides,
-            Bsz, S, H, P, N, L, code, stream_of(device))
+    lib = load_library("ssd_scan")
+    err = lib.launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), s0, y.data_ptr(), s_out.data_ptr(),
+        ctypes.addressof(strides), Bsz, S, H, P, N, L, code, index,
+        stream_of(index))
     check(lib, err, "ssd_scan")
     ssd_scan.launches += 1
     return y, s_out

@@ -8,25 +8,11 @@ counts the kernel's launches, and nothing else.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from repro_torch.kernels.build import (check, load_library, one_device,
+from repro_torch.kernels.build import (check, cuda_index, load_library,
                                        stream_of)
 from repro_torch.kernels.ref import serialize_prefix_ref
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its launcher typed."""
-    lib = load_library("wavefront")
-    fn = lib.repro_serialize_prefix_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
 
 
 def serialize_prefix(free0: torch.Tensor, release: torch.Tensor,
@@ -41,11 +27,9 @@ def serialize_prefix(free0: torch.Tensor, release: torch.Tensor,
             f"{tuple(release.shape)}, dur {tuple(dur.shape)}")
     if release.shape[-1] == 0:
         raise ValueError("serialize_prefix needs at least one item per row")
-    device = one_device(free0=free0, release=release, dur=dur)
-    if device.type == "cpu":
+    index = cuda_index(free0, release, dur)
+    if index < 0:
         return serialize_prefix_ref(free0, release, dur)
-    if device.type != "cuda":
-        raise ValueError(f"no serialize_prefix kernel for {device.type}")
     for name, t in (("free0", free0), ("release", release), ("dur", dur)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, not {t.dtype}")
@@ -57,11 +41,10 @@ def serialize_prefix(free0: torch.Tensor, release: torch.Tensor,
     new_free = torch.empty_like(free0)
     if rows == 0:
         return fin, new_free
-    lib = _library()
-    with torch.cuda.device(device):
-        code = lib.repro_serialize_prefix_f32(
-            free0.data_ptr(), release.data_ptr(), dur.data_ptr(),
-            fin.data_ptr(), new_free.data_ptr(), rows, w, stream_of(device))
+    lib = load_library("wavefront")
+    code = lib.launch(
+        free0.data_ptr(), release.data_ptr(), dur.data_ptr(), fin.data_ptr(),
+        new_free.data_ptr(), rows, w, index, stream_of(index))
     check(lib, code, "serialize_prefix")
     serialize_prefix.launches += 1
     return fin, new_free

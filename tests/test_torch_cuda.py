@@ -20,6 +20,8 @@ from repro_torch.hw.catalog import mc_hetero, mc_hom_tpu_chip4
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels import moe_gemm as moe_gemm_module
+from repro_torch.kernels import rmsnorm as rmsnorm_module
 from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.ref import (decode_attention_ref,
                                      flash_attention_ref, moe_gemm_ref,
@@ -98,13 +100,30 @@ def _close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def _at_offset(t, offset):
+    """`t`'s values in a contiguous tensor that starts `offset` elements
+    into its storage: off the 16-byte grid for an offset of 1."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.parametrize("shape", [(4, 37, 96), (2, 8, 128), (1, 300, 64),
-                                   (4, 1, 3072), (4, 128, 3072)])
+                                   (4, 1, 3072), (4, 128, 3072), (4, 2048),
+                                   (4, 2560), (2, 3, 5120), (3, 100)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
-def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, scale_dtype):
-    x = _on(cuda, normal(shape, 0), dtype)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, scale_dtype,
+                                      offset):
+    x = _at_offset(_on(cuda, normal(shape, 0), dtype), offset)
     s = _on(cuda, normal(shape[-1:], 1), scale_dtype)
+    per_vector = 16 // x.element_size()
+    assert rmsnorm_module.variant(x, s) == (
+        "scalar" if offset or shape[-1] % per_vector else "vector")
     before = rmsnorm_fwd.launches
     got = rmsnorm_fwd(x, s)
     assert rmsnorm_fwd.launches == before + 1 and got.dtype == x.dtype
@@ -253,13 +272,22 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, K, V, chunk, dtype,
     torch.testing.assert_close(s, want_s, **STATE_TOL)
 
 
+# the serving shapes, and every C tile edge of the tensor-core kernel with
+# K and N multiples of 8 (its route) and not (the CUDA-core route)
 @pytest.mark.parametrize("E,C,K,N", [
     (2, 32, 64, 48), (4, 64, 96, 80), (1, 128, 128, 128),
-    (64, 8, 2048, 1408), (64, 60, 1408, 2048), (3, 17, 33, 65)])
+    (64, 8, 2048, 1408), (64, 60, 1408, 2048), (3, 17, 33, 65)] + [
+    (2, C, K, N) for C in (1, 8, 9, 16, 17, 60, 64, 65)
+    for K, N in ((64, 48), (33, 65))])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_moe_gemm_kernel_matches_plain(cuda, E, C, K, N, dtype):
-    x = _on(cuda, normal((E, C, K), 0, 0.3), dtype)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_moe_gemm_kernel_matches_plain(cuda, E, C, K, N, dtype, offset):
+    x = _at_offset(_on(cuda, normal((E, C, K), 0, 0.3), dtype), offset)
     w = _on(cuda, normal((E, K, N), 1, 0.3), dtype)
+    tensor_cores = dtype == "bfloat16" and K % 8 == 0 and N % 8 == 0 and \
+        not offset
+    assert moe_gemm_module.variant(x, w) == ("mma" if tensor_cores
+                                             else "fma")
     before = moe_gemm.launches
     got = moe_gemm(x, w)
     assert moe_gemm.launches == before + 1 and got.dtype == x.dtype
@@ -296,6 +324,36 @@ def test_scan_and_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         moe_gemm(torch.ones(2, 8, 4, device=cuda).transpose(1, 2),
                  torch.ones(2, 8, 4, device=cuda))
+
+
+@pytest.mark.parametrize("kernel", ["rmsnorm", "moe_gemm"])
+def test_kernel_captured_in_a_cuda_graph_replays_as_the_eager_call(cuda,
+                                                                   kernel):
+    if kernel == "rmsnorm":
+        x = _on(cuda, normal((4, 3072), 20), "bfloat16")
+        y = _on(cuda, normal((3072,), 21), "bfloat16")
+        fn, launches = (lambda: rmsnorm_fwd(x, y)), rmsnorm_fwd
+    else:
+        x = _on(cuda, normal((8, 8, 256), 20, 0.3), "bfloat16")
+        y = _on(cuda, normal((8, 256, 128), 21, 0.3), "bfloat16")
+        fn, launches = (lambda: moe_gemm(x, y)), moe_gemm
+        assert moe_gemm_module.variant(x, y) == "mma"
+    side = torch.cuda.Stream()       # warm up off the capture, as
+    side.wait_stream(torch.cuda.current_stream())   # torch.cuda.graphs asks
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    before = launches.launches
+    # new values in the captured input: the replay must read them
+    x.copy_(_on(cuda, normal(tuple(x.shape), 22), "bfloat16"))
+    want = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert launches.launches == before + 1    # the eager call, not replays
+    assert torch.equal(got, want)
 
 
 _KERNELS = {"rmsnorm": rmsnorm_fwd, "flash_attention": flash_attention_fwd,
