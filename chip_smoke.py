@@ -13,8 +13,11 @@ non-zero and prints no `ok` line:
              (serialize_prefix, rmsnorm, decode_attention, flash_attention,
              ssd_scan, rwkv6_scan, moe_gemm), with its times at the main
              paths' shapes, its bound and the time (events and device) of
-             one PyTorch call computing the same function; moe_gemm's bf16
-             serving shapes must run its tensor-core kernel;
+             one PyTorch call computing the same function; the bf16
+             serving shapes of moe_gemm and flash attention must run their
+             tensor-core kernels, decode attention its split kernel, and
+             the attention kernels' bf16 errors are also given in bf16
+             ulps of the plain version in float32 (at most 2);
 4. fitness — BatchedFitness on the card, kernel path against the plain path
              and against the CPU, launch counts, genomes/s, kernel times;
 5. explore — Stream's explore(prefilter=True) on the card, the DSE main
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -97,6 +101,48 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_label(mangled: str) -> str:
+    """`name<template arguments>` of a mangled kernel name: the last of its
+    length-prefixed (nested) names, and its template arguments (bf16 or f32,
+    then the integers)."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    targs = re.match(r"I(.*?)Ev", mangled[i:])
+    if not targs:
+        return name
+    t = targs.group(1)
+    args = ["bf16"] if "bfloat16" in t else ["f32"] if t[:1] == "f" else []
+    return f"{name}<{','.join(args + re.findall(r'Li(\d+)E', t))}>"
+
+
+def ptxas_summary(text: str) -> list[dict]:
+    """Registers and spill bytes of each kernel that `nvcc -Xptxas -v`
+    compiled, from what it printed."""
+    rows, spill = [], (0, 0)
+    fn = None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            rows.append({"kernel": kernel_label(fn),
+                         "registers": int(m.group(1)),
+                         "spill_stores": spill[0], "spill_loads": spill[1]})
+            fn, spill = None, (0, 0)
+    return rows
 
 
 def cuda_ms(*fns, iters: int = 200, warmup: int = 20,
@@ -175,14 +221,18 @@ def device_times(fn) -> tuple[float, list]:
     return wall * 1e3, rows
 
 
-def kernel_device_ms(fn, name: str, iters: int = 100) -> float | None:
+def kernel_device_ms(fn, name: str, iters: int = 100,
+                     tries: int = 3) -> float | None:
     """Mean device ms of the kernels whose name holds `name`, over `iters`
-    calls of `fn` (None when the profiler sees no such kernel)."""
-    _, rows = device_times(lambda: [fn() for _ in range(iters)])
-    hits = [(us, c) for us, k, c in rows if name in k]
-    if not hits:
-        return None
-    return sum(us for us, _ in hits) / 1e3 / sum(c for _, c in hits)
+    calls of `fn` (None when the profiler sees no such kernel in `tries`
+    profiles: on the H100 it has once returned a profile without the
+    cluster-launched kernel whose launches the wrapper counted)."""
+    for _ in range(tries):
+        _, rows = device_times(lambda: [fn() for _ in range(iters)])
+        hits = [(us, c) for us, k, c in rows if name in k]
+        if hits:
+            return sum(us for us, _ in hits) / 1e3 / sum(c for _, c in hits)
+    return None
 
 
 def call_device_ms(fn, iters: int = 100) -> float:
@@ -232,6 +282,22 @@ def held(got, want, dtype) -> float:
     """Max abs error of a kernel's output against its plain version; raises
     beyond the reference's kernel tolerance."""
     return held_tol(got, want, SERVE_TOL[dtype])
+
+
+def bf16_ulps(got, want) -> float:
+    """The largest |got - want| in bf16 spacings at `want`, the plain
+    version in float32 on the same bf16 inputs. The spacing is taken at
+    |want| >= 2**-8: below that the float32 sums' own error, about 1e-6
+    from terms near 1, is no longer small against it."""
+    import torch
+    want = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -8)))
+                     - 7)
+    return float(((got.float() - want).abs() / ulp).max())
+
+
+def as_float(*tensors):
+    return [t.float() for t in tensors]
 
 
 def bound(n_bytes: float, n_ops: float, ops_per_s: float,
@@ -382,34 +448,52 @@ def check_rmsnorm(dev) -> dict:
             "shape": [SLOTS, 3072]}
 
 
-def _kv(rng, layout, B, Hkv, T, D, dtype, dev):
+def _kv(rng, layout, B, Hkv, T, D, dtype, dev, offset=0):
     """k, v as (B, Hkv, T, D): contiguous (the TPU kernel's layout, G = 1)
-    or transposed views of the model's (B, T, Hkv, D) cache."""
+    or transposed views of the model's (B, T, Hkv, D) cache, that one
+    `offset` elements into its storage."""
     if layout == "model":
-        return [tensor(rng, (B, T, Hkv, D), dtype, dev).transpose(1, 2)
-                for _ in range(2)]
+        return [tensor(rng, (B * T * Hkv * D + offset,), dtype, dev)[offset:]
+                .view(B, T, Hkv, D).transpose(1, 2) for _ in range(2)]
     return [tensor(rng, (B, Hkv, T, D), dtype, dev) for _ in range(2)]
 
 
 def check_decode_attention(dev) -> dict:
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                      variant)
     from repro_torch.kernels.ref import decode_attention_ref
     rng = np.random.default_rng(3)
-    errs = {}
+    errs, ulps = {}, {}
     for layout, hq, hkv in (("tpu", 8, 8), ("model", 24, 8)):
         for B, T, D in ((SLOTS, MAX_LEN, 128), (2, 200, 64), (3, 64, 128),
                         (SLOTS, MAX_LEN, 80)):
-            for cur in (1, 100, T):
+            for cur in (0, 1, 100, T, T + 5):
                 for dtype in ("float32", "bfloat16"):
                     q = tensor(rng, (B, hq, D), dtype, dev)
                     k, v = _kv(rng, layout, B, hkv, T, D, dtype, dev)
-                    errs[f"{layout}-{B}x{T}x{D}-cur{cur}-{dtype}"] = held(
-                        decode_attention_fwd(q, k, v, cur),
-                        decode_attention_ref(q, k, v, cur), dtype)
+                    key = (f"{layout}-{B}x{T}x{D}-cur{cur}-{dtype}-"
+                           f"{variant(q, k, v)}")
+                    got = decode_attention_fwd(q, k, v, cur)
+                    errs[key] = held(got, decode_attention_ref(q, k, v, cur),
+                                     dtype)
+                    if dtype == "bfloat16":
+                        ulps[key] = bf16_ulps(got, decode_attention_ref(
+                            *as_float(q, k, v), cur))
+    # a cache off the 16-byte grid takes the one-block-a-head kernel
+    for dtype in ("float32", "bfloat16"):
+        q = tensor(rng, (SLOTS, 24, 128), dtype, dev)
+        k, v = _kv(rng, "model", SLOTS, 8, MAX_LEN, 128, dtype, dev, offset=1)
+        assert variant(q, k, v) == "head"
+        errs[f"misaligned-{dtype}-head"] = held(
+            decode_attention_fwd(q, k, v, SERVE_CUR),
+            decode_attention_ref(q, k, v, SERVE_CUR), dtype)
+    split = {k: u for k, u in ulps.items() if k.endswith("split")}
+    assert split and max(split.values()) <= 2.0, split
     q = tensor(rng, (SLOTS, 24, 128), "bfloat16", dev)
     k, v = _kv(rng, "model", SLOTS, 8, MAX_LEN, 128, "bfloat16", dev)
+    assert variant(q, k, v) == "split"
     mask = torch.arange(MAX_LEN, device=dev) < SERVE_CUR
     n_bytes = 2 * q.numel() * 2 + 2 * SLOTS * 8 * SERVE_CUR * 128 * 2
     t = timed(lambda: decode_attention_fwd(q, k, v, SERVE_CUR),
@@ -417,85 +501,126 @@ def check_decode_attention(dev) -> dict:
               lambda: F.scaled_dot_product_attention(
                   q[:, :, None], k, v, attn_mask=mask[None],
                   enable_gqa=True),
-              "decode_attention_kernel",
+              "decode_attention_kernel_split",
               (n_bytes, 4 * SLOTS * 24 * SERVE_CUR * 128, BF16_OPS_PER_S))
-    t["max_abs_err"] = held(decode_attention_fwd(q, k, v, SERVE_CUR),
-                            decode_attention_ref(q, k, v, SERVE_CUR),
+    assert t["device_ms"] is not None, "the split kernel never ran"
+    got = decode_attention_fwd(q, k, v, SERVE_CUR)
+    t["max_abs_err"] = held(got, decode_attention_ref(q, k, v, SERVE_CUR),
                             "bfloat16")
+    t["max_ulps"] = bf16_ulps(got, decode_attention_ref(*as_float(q, k, v),
+                                                        SERVE_CUR))
+    t["variant"] = "split"
+    # the same launch over one key: what the kernel costs without its work
+    t["device_ms_cur1"] = kernel_device_ms(
+        lambda: decode_attention_fwd(q, k, v, 1),
+        "decode_attention_kernel_split")
     # zamba2-2.7b's shared block: 32 heads over 32 KV heads, D = 80, the
     # middle of a wave's decode steps
     cur = PROMPT + SERVED["zamba2-2.7b"][0] // 2
     q80 = tensor(rng, (SLOTS, 32, 80), "bfloat16", dev)
     k80, v80 = _kv(rng, "model", SLOTS, 32, MAX_LEN, 80, "bfloat16", dev)
+    assert variant(q80, k80, v80) == "split"
     mask = torch.arange(MAX_LEN, device=dev) < cur
     d80 = timed(lambda: decode_attention_fwd(q80, k80, v80, cur),
                 lambda: decode_attention_ref(q80, k80, v80, cur),
                 lambda: F.scaled_dot_product_attention(
                     q80[:, :, None], k80, v80, attn_mask=mask[None]),
-                "decode_attention_kernel",
+                "decode_attention_kernel_split",
                 (2 * q80.numel() * 2 + 2 * SLOTS * 32 * cur * 80 * 2,
                  4 * SLOTS * 32 * cur * 80, BF16_OPS_PER_S))
-    d80["max_abs_err"] = held(decode_attention_fwd(q80, k80, v80, cur),
-                              decode_attention_ref(q80, k80, v80, cur),
+    got = decode_attention_fwd(q80, k80, v80, cur)
+    d80["max_abs_err"] = held(got, decode_attention_ref(q80, k80, v80, cur),
                               "bfloat16")
+    d80["max_ulps"] = bf16_ulps(got, decode_attention_ref(
+        *as_float(q80, k80, v80), cur))
+    d80["variant"] = "split"
     d80["shape"] = [SLOTS, 32, 32, MAX_LEN, 80, cur]
-    return {"errors": errs, "main": t, "d80": d80,
+    return {"errors": errs, "ulps": ulps, "main": t, "d80": d80,
             "shape": [SLOTS, 24, 8, MAX_LEN, 128, SERVE_CUR]}
 
 
 def check_flash_attention(dev) -> dict:
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     variant)
     from repro_torch.kernels.ref import flash_attention_ref
     rng = np.random.default_rng(4)
-    errs = {}
+    errs, ulps = {}, {}
 
-    def qkv(layout, B, hq, hkv, S, D, dtype):
+    def qkv(layout, B, hq, hkv, S, D, dtype, offset=0):
         if layout == "model":
-            q = tensor(rng, (B, S, hq, D), dtype, dev).transpose(1, 2)
+            q = tensor(rng, (B, S * hq * D + offset), dtype, dev)[:, offset:]
+            q = q.view(B, S, hq, D).transpose(1, 2)
         else:
             q = tensor(rng, (B, hq, S, D), dtype, dev)
         return (q, *_kv(rng, layout, B, hkv, S, D, dtype, dev))
 
-    for layout, hq, hkv in (("tpu", 8, 8), ("model", 24, 8)):
+    for layout, hq, hkv in (("tpu", 8, 8), ("model", 24, 8),
+                            ("model", 16, 2)):
         for B, S, D in ((SLOTS, PROMPT, 128), (1, 40, 128), (2, 200, 64),
-                        (SLOTS, PROMPT, 80)):
+                        (SLOTS, PROMPT, 80), (1, 1, 128), (2, 65, 80),
+                        (1, 200, 128)):
             for causal in (True, False):
                 for dtype in ("float32", "bfloat16"):
                     q, k, v = qkv(layout, B, hq, hkv, S, D, dtype)
                     out = flash_attention_fwd(q, k, v, causal=causal)
                     assert out.stride() == q.stride() or not out.is_cuda
-                    errs[f"{layout}-{B}x{S}x{D}-causal{int(causal)}-"
-                         f"{dtype}"] = held(
+                    key = (f"{layout}-G{hq // hkv}-{B}x{S}x{D}-"
+                           f"causal{int(causal)}-{dtype}-{variant(q, k, v)}")
+                    errs[key] = held(
                         out, flash_attention_ref(q, k, v, causal=causal),
                         dtype)
+                    if dtype == "bfloat16":
+                        ulps[key] = bf16_ulps(out, flash_attention_ref(
+                            *as_float(q, k, v), causal=causal))
+    # queries off the 16-byte grid take the CUDA-core kernel
+    q, k, v = qkv("model", SLOTS, 24, 8, PROMPT, 128, "bfloat16", offset=1)
+    assert variant(q, k, v) == "fma"
+    errs["misaligned-bfloat16-fma"] = held(
+        flash_attention_fwd(q, k, v), flash_attention_ref(q, k, v),
+        "bfloat16")
+    mma = {k: u for k, u in ulps.items() if k.endswith("mma")}
+    assert mma and max(mma.values()) <= 2.0, mma
     q, k, v = qkv("model", SLOTS, 24, 8, PROMPT, 128, "bfloat16")
+    assert variant(q, k, v) == "mma"
     n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     pairs = SLOTS * 24 * PROMPT * (PROMPT + 1) // 2   # causal (i, j <= i)
     t = timed(lambda: flash_attention_fwd(q, k, v, causal=True),
               lambda: flash_attention_ref(q, k, v, causal=True),
               lambda: F.scaled_dot_product_attention(
                   q, k, v, is_causal=True, enable_gqa=True),
-              "flash_attention_kernel",
+              "flash_attention_kernel_mma",
               (n_bytes, 4 * pairs * 128, BF16_OPS_PER_S))
-    t["max_abs_err"] = held(flash_attention_fwd(q, k, v, causal=True),
-                            flash_attention_ref(q, k, v, causal=True),
+    assert t["device_ms"] is not None, "the tensor-core kernel never ran"
+    got = flash_attention_fwd(q, k, v, causal=True)
+    t["max_abs_err"] = held(got, flash_attention_ref(q, k, v, causal=True),
                             "bfloat16")
+    t["max_ulps"] = bf16_ulps(got, flash_attention_ref(*as_float(q, k, v),
+                                                       causal=True))
+    t["variant"] = "mma"
+    # twice the products (no causal skip): how far the work sets the time
+    t["device_ms_noncausal"] = kernel_device_ms(
+        lambda: flash_attention_fwd(q, k, v, causal=False),
+        "flash_attention_kernel_mma")
     # zamba2-2.7b's shared block at prefill: 32 heads, D = 80
     q, k, v = qkv("model", SLOTS, 32, 32, PROMPT, 80, "bfloat16")
+    assert variant(q, k, v) == "mma"
     pairs = SLOTS * 32 * PROMPT * (PROMPT + 1) // 2
     d80 = timed(lambda: flash_attention_fwd(q, k, v, causal=True),
                 lambda: flash_attention_ref(q, k, v, causal=True),
                 lambda: F.scaled_dot_product_attention(q, k, v,
                                                        is_causal=True),
-                "flash_attention_kernel",
+                "flash_attention_kernel_mma",
                 (2 * (2 * q.numel() + k.numel() + v.numel()),
                  4 * pairs * 80, BF16_OPS_PER_S))
-    d80["max_abs_err"] = held(flash_attention_fwd(q, k, v, causal=True),
-                              flash_attention_ref(q, k, v, causal=True),
+    got = flash_attention_fwd(q, k, v, causal=True)
+    d80["max_abs_err"] = held(got, flash_attention_ref(q, k, v, causal=True),
                               "bfloat16")
+    d80["max_ulps"] = bf16_ulps(got, flash_attention_ref(*as_float(q, k, v),
+                                                         causal=True))
+    d80["variant"] = "mma"
     d80["shape"] = [SLOTS, 32, 32, PROMPT, 80, "causal"]
-    return {"errors": errs, "main": t, "d80": d80,
+    return {"errors": errs, "ulps": ulps, "main": t, "d80": d80,
             "shape": [SLOTS, 24, 8, PROMPT, 128, "causal"]}
 
 
@@ -761,9 +886,13 @@ def serve_phase(dev, counters, arch: str) -> dict:
     step_ms, rows = device_times(lambda: engine.decode_once(tok).tolist())
     kernels = [r for r in rows if not r[1].startswith("aten::")]
     busy_ms = sum(r[0] for r in kernels) / 1e3
-    if launches["moe_gemm"]:   # the bf16 serving shapes run on tensor cores
-        names = [k for _, k, _ in kernels if "moe_gemm_kernel" in k]
-        assert names and all("moe_gemm_kernel_mma" in k for k in names), names
+    # the bf16 serving shapes run the redesigned kernels
+    for name, kernel, suffix in (("moe_gemm", "moe_gemm_kernel", "_mma"),
+                              ("decode_attention", "decode_attention_kernel",
+                               "_split")):
+        if launches[name]:
+            names = [k for _, k, _ in kernels if kernel in k]
+            assert names and all(kernel + suffix in k for k in names), names
     n_bytes = param_bytes(specs)
     out = {
         "phase": "serve", "arch": arch, "params": cfg.param_count(),
@@ -868,9 +997,8 @@ def main() -> int:
     libs = build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": build.build_seconds,
-          "ptxas": {k: [ln.strip() for ln in v.splitlines()
-                        if "Used" in ln or "spill" in ln]
-                    for k, v in build.ptxas_info.items()},
+          "ptxas": {k: ptxas_summary(v)
+                    for k, v in sorted(build.ptxas_info.items())},
           "libraries": {k: os.path.relpath(v, ROOT) for k, v in libs.items()}})
 
     # ---- kernel vs plain on the card --------------------------------------
@@ -920,8 +1048,9 @@ def main() -> int:
                 "max_abs_err": max(res["errors"].values()),
                 "errors": res["errors"], "shape": res["shape"],
                 "times": res.get("times", res["main"])}
-        if "d80" in res:
-            line["d80"] = res["d80"]
+        for extra in ("d80", "ulps"):
+            if extra in res:
+                line[extra] = res[extra]
         if "state_tolerance" in res:
             line["state_tolerance"] = res["state_tolerance"]
         emit(line)
@@ -959,10 +1088,7 @@ def main() -> int:
         t0 = time.perf_counter()
         exact = engine.evaluate_population(pop, "latency")
         t_e = time.perf_counter() - t0
-        try:
-            prof = profile_scores(kern, pop)
-        except Exception as exc:   # the profiler is a measurement aid only
-            prof = {"error": repr(exc)}
+        prof = profile_scores(kern, pop)
         emit({"phase": "fitness", "workload": w.name, "arch": acc.name,
               "genomes": len(pop), "cns": engine.graph.n,
               "wavefronts": kern.n_wavefronts, "width": kern.width,
@@ -1060,8 +1186,9 @@ def main() -> int:
             "library_ms": m["library_ms"],
             "library_device_ms": m["library_device_ms"],
             "shape": serving[name]["shape"]}
-        if "variant" in m:
-            row["variant"] = m["variant"]
+        for extra in ("variant", "max_ulps"):
+            if extra in m:
+                row[extra] = m[extra]
         assert row["launches"] > 0, row
         rows.append(row)
     emit({"kernels": rows})

@@ -23,24 +23,55 @@
 // as transposed views with G = Hq / Hkv, so nothing is copied or repeated.
 // Any S and T work: the tail tiles are masked, and the wrapper pads nothing.
 //
-// Design: one block of 8 warps per (query tile of 64 rows, h, b). The
-// tile's queries sit in shared memory as float32; K and V are staged in
-// tiles of 32 keys (the K tile padded by one column so that lane j reading
-// key j hits 32 distinct banks). Warp w owns 8 query rows; lane j computes
-// the scores of key j against them on CUDA cores (no tensor cores yet), the
-// row max is a warp all-reduce, and each lane keeps a partial row sum. For
-// the PV product lane i owns the columns d = i, i + 32, ... of its warp's
-// 8 accumulator rows, and p_ij reaches it by a warp shuffle from lane j.
-// Causal tiles strictly above the diagonal are skipped. Shared memory is
-// (128 D + 32) * 4 bytes: 64.1 KB at D = 128, above the 48 KB default, so
-// the launcher raises the kernel's dynamic shared memory limit.
+// Two kernels; the wrapper (repro_torch/kernels/flash_attention.py:variant)
+// names the one to run, by dtype, D and alignment:
+//
+// flash_attention_kernel_mma, the serving path: bf16, D a multiple of 16 up
+// to 128, every B, H and S|T stride a multiple of 8 elements and the four
+// pointers 16-byte aligned. One block of 4 warps per (query tile of 64
+// rows, h, b), the heaviest causal tiles first; warp w owns rows 16w..16w+15
+// of the tile. The Q tile and tiles of 64 keys of K and V arrive by 16-byte
+// cp.async.cg copies (zero-filled past S and T) in a ring of two stages, so
+// the next K/V tile is in flight while this one is multiplied. Rows are
+// padded from D to D + 8 elements in shared memory: an odd number of
+// 16-byte chunks a row, so ldmatrix's eight rows hit eight bank groups at
+// every D of the grid, D = 80 (ten chunks) among them. Q is loaded once
+// into A fragments that stay in registers. S = Q K^T is mma.sync.m16n8k16
+// with float32 sums; the products of two bf16 values are exact in float32,
+// so this is the TPU kernel's float32 dot up to the order of the sums. The
+// online softmax runs on the accumulator registers, a row's max and sum
+// reduced over the quad of lanes that holds it, in base 2: the scores are
+// scaled by log2 e and exp2f (one MUFU operation, within 2 float32 ulps)
+// takes the place of expf. Only tiles that cross the diagonal or the end of
+// T are masked, and tiles above the diagonal are skipped. The C
+// fragments of S are the A fragments of P V (the m16n8 C layout of two
+// adjacent key tiles is the m16k16 A layout), and p is split
+// into p_hi = bf16(p) and p_lo = bf16(p - p_hi): two products, P_hi V and
+// P_lo V, carry p to about 16 bits, well past the one rounding of the
+// output, where a single bf16 p would be the model layer's function and
+// not the kernel's. V feeds the B fragments through ldmatrix.trans. The
+// sums are normalised by max(l, 1e-30), rounded once to bf16, staged
+// through the warp's rows of the Q tile and stored 16 bytes a lane.
+//
+// flash_attention_kernel_fma, every other call (float32, D off the grid or
+// above 128, misaligned views): one block of 8 warps per (query tile of 64
+// rows, h, b). The tile's queries sit in shared memory as float32; K and V
+// are staged in tiles of 32 keys (the K tile padded by one column so that
+// lane j reading key j hits 32 distinct banks). Warp w owns 8 query rows;
+// lane j computes the scores of key j against them on CUDA cores, the row
+// max is a warp all-reduce, and each lane keeps a partial row sum. For the
+// PV product lane i owns the columns d = i, i + 32, ... of its warp's 8
+// accumulator rows, and p_ij reaches it by a warp shuffle from lane j.
 //
 // What bounds it: on the serving path (llama3.2-3b prefill, B = 4,
 // S = T = 128, 24 query heads over 8 KV heads, D = 128, bf16) the causal
-// work is about 0.41 GFLOP, 0.41 us at the bf16 tensor-core peak, and the
-// bytes (q, k, v read once, out written once) are about 8.4 MB, 2.5 us at
-// 3.35 TB/s: bytes bound it. It launches 28 times per prefill (once per
-// layer). A wgmma/TMA version is later work.
+// work is about 0.41 GFLOP (0.62 with the p_lo products), 0.6 us at the
+// bf16 tensor-core peak, and the bytes (q, k, v read once, out written
+// once) are about 8.4 MB, 2.5 us at 3.35 TB/s: bytes bound it. The grid is
+// 2 x 24 x 4 = 192 blocks of 87 KB of shared memory, two a SM. It launches
+// 28 times per prefill (once per layer). A kernel's dynamic shared memory
+// limit is raised once per device and size (repro::SmemLimit), not on every
+// launch.
 //
 // A C launcher, called from Python through the extension module that
 // csrc/launch.cuh makes of the library: it returns cudaGetLastError() and
@@ -48,6 +79,7 @@
 
 // launch.cuh includes Python.h, which comes before the standard headers
 #include "launch.cuh"
+#include "mma.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,11 +87,6 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 8;
-constexpr int kBlockQ = kWarps * kRowsPerWarp;  // 64 query rows
-constexpr int kBlockK = 32;                     // keys per tile, one a lane
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -76,6 +103,14 @@ struct Strides {
   int64_t b, h, s;
 };
 
+// ---- the general kernel: CUDA cores ---------------------------------------
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerWarp = 8;
+constexpr int kBlockQ = kWarps * kRowsPerWarp;  // 64 query rows
+constexpr int kBlockK = 32;                     // keys per tile, one a lane
+
 size_t smem_bytes(int d) {
   return (size_t)(kBlockQ * d + kBlockK * (d + 1) + kBlockK * d) *
          sizeof(float);
@@ -84,7 +119,7 @@ size_t smem_bytes(int d) {
 // NC = number of 32-column chunks a lane holds: D <= 32 * NC.
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_attention_kernel_fma(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        Strides qs, Strides ks, Strides vs, Strides os,
                        int group, int s_len, int t_len, int d, int causal,
@@ -206,39 +241,324 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int NC>
-int launch(const void* q, const void* k, const void* v, void* out,
-           Strides qs, Strides ks, Strides vs, Strides os, int batch, int hq,
-           int group, int s_len, int t_len, int d, int causal, float scale,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, NC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch_fma(const void* q, const void* k, const void* v, void* out,
+               Strides qs, Strides ks, Strides vs, Strides os, int batch,
+               int hq, int group, int s_len, int t_len, int d, int causal,
+               float scale, int device, cudaStream_t stream) {
+  static repro::SmemLimit limit;
+  cudaError_t err = limit.ensure(flash_attention_kernel_fma<T, NC>,
+                                 (int)smem_bytes(d), device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((s_len + kBlockQ - 1) / kBlockQ), (unsigned)hq,
                   (unsigned)batch);
-  flash_attention_kernel<T, NC><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel_fma<T, NC><<<grid, kThreads, smem_bytes(d),
+                                      stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, qs, ks, vs, os, group,
       s_len, t_len, d, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out,
-             Strides qs, Strides ks, Strides vs, Strides os, int batch,
-             int hq, int group, int s_len, int t_len, int d, int causal,
-             float scale, cudaStream_t stream) {
+int dispatch_fma(const void* q, const void* k, const void* v, void* out,
+                 Strides qs, Strides ks, Strides vs, Strides os, int batch,
+                 int hq, int group, int s_len, int t_len, int d, int causal,
+                 float scale, int device, cudaStream_t stream) {
   if (d <= 32)
-    return launch<T, 1>(q, k, v, out, qs, ks, vs, os, batch, hq, group,
-                        s_len, t_len, d, causal, scale, stream);
+    return launch_fma<T, 1>(q, k, v, out, qs, ks, vs, os, batch, hq, group,
+                            s_len, t_len, d, causal, scale, device, stream);
   if (d <= 64)
-    return launch<T, 2>(q, k, v, out, qs, ks, vs, os, batch, hq, group,
-                        s_len, t_len, d, causal, scale, stream);
+    return launch_fma<T, 2>(q, k, v, out, qs, ks, vs, os, batch, hq, group,
+                            s_len, t_len, d, causal, scale, device, stream);
   if (d <= 128)
-    return launch<T, 4>(q, k, v, out, qs, ks, vs, os, batch, hq, group,
-                        s_len, t_len, d, causal, scale, stream);
-  return launch<T, 8>(q, k, v, out, qs, ks, vs, os, batch, hq, group, s_len,
-                      t_len, d, causal, scale, stream);
+    return launch_fma<T, 4>(q, k, v, out, qs, ks, vs, os, batch, hq, group,
+                            s_len, t_len, d, causal, scale, device, stream);
+  return launch_fma<T, 8>(q, k, v, out, qs, ks, vs, os, batch, hq, group,
+                          s_len, t_len, d, causal, scale, device, stream);
+}
+
+// ---- the tensor-core kernel: bf16 mma.sync fed by cp.async -----------------
+
+using bf16 = __nv_bfloat16;
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::ldmatrix_x4;
+using repro::ldmatrix_x4_trans;
+using repro::mma_bf16;
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kTileQ = 16 * kMmaWarps;   // 64 query rows, 16 a warp
+constexpr int kTileK = 64;               // keys a K/V tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory: the Q tile, then two stages of a K tile and a V tile, each
+// row padded to D + 8 bf16 elements.
+template <int D>
+constexpr int mma_smem_bytes() {
+  return (kTileQ + 2 * 2 * kTileK) * (D + 8) * (int)sizeof(bf16);
+}
+
+// Two floats as a bf16x2 register, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// p_hi = bf16(p) and p_lo = bf16(p - p_hi), pairwise: p_hi + p_lo holds p
+// to about 16 bits.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_attention_kernel_mma(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out,
+                           Strides qs, Strides ks, Strides vs, Strides os,
+                           int group, int s_len, int t_len, int causal,
+                           float scale) {
+  constexpr int LD = D + 8;     // padded row, elements
+  constexpr int CH = D / 8;     // 16-byte chunks a row
+  constexpr int KD = D / 16;    // k-steps of Q K^T
+  constexpr int ND = D / 8;     // n-tiles of P V
+  extern __shared__ __align__(16) bf16 tiles[];
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTileQ;  // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z, kh = h / group;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bf16* qp = q + b * qs.b + h * qs.h;
+  const bf16* kp = k + b * ks.b + kh * ks.h;
+  const bf16* vp = v + b * vs.b + kh * vs.h;
+
+  const uint32_t q_tile = (uint32_t)__cvta_generic_to_shared(tiles);
+  auto k_tile = [&](int slot) {
+    return q_tile + (kTileQ + slot * 2 * kTileK) * LD * (int)sizeof(bf16);
+  };
+  auto v_tile = [&](int slot) {
+    return k_tile(slot) + kTileK * LD * (int)sizeof(bf16);
+  };
+  // rows r0 .. r0 + 63 of a (len, D) operand with row stride `st`, zero
+  // past len
+  static_assert(kTileQ == kTileK, "one tile height");
+  auto load_rows = [&](uint32_t dst, const bf16* src, int64_t st, int r0,
+                       int len) {
+#pragma unroll
+    for (int i = 0; i < kTileK * CH / kMmaThreads; ++i) {
+      const int idx = tid + i * kMmaThreads;
+      const int r = idx / CH, ch = idx % CH;
+      const bool ok = r0 + r < len;
+      cp_async16(dst + (r * LD + ch * 8) * (int)sizeof(bf16),
+                 ok ? src + (r0 + r) * st + ch * 8 : src, ok);
+    }
+  };
+  auto load_kv = [&](int slot, int t0) {
+    load_rows(k_tile(slot), kp, ks.s, t0, t_len);
+    load_rows(v_tile(slot), vp, vs.s, t0, t_len);
+  };
+
+  // causal: keys past the tile's last query row contribute nothing
+  const int kv_end = causal ? min(t_len, q0 + kTileQ) : t_len;
+  const float scale2 = scale * kLog2e;
+  const int n_tiles = (kv_end + kTileK - 1) / kTileK;
+  load_rows(q_tile, qp, qs.s, q0, s_len);
+  cp_async_commit();
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // ldmatrix: lanes 8j..8j+7 give the rows of the j-th 8 x 8 matrix; the
+  // mma fragments: g = lane / 4 is the row (A, C) or column (B), t4 = lane
+  // % 4 the pair of columns (A, C) or rows (B)
+  const int mj = lane >> 3, mr = lane & 7;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = warp * 16;              // the warp's rows in the tile
+  uint32_t qf[KD][4];
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  // rows g and g + 8: running max (base 2) and sum
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
+
+  cp_async_wait<1>();   // Q has landed; the first K/V tile may be in flight
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldmatrix_x4(qf[kk], q_tile + ((row0 + (mj & 1) * 8 + mr) * LD + kk * 16 +
+                                  (mj >> 1) * 8) *
+                                     (int)sizeof(bf16));
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) load_kv((j + 1) & 1, (j + 1) * kTileK);
+    cp_async_commit();
+    cp_async_wait<1>();   // tile j has landed
+    __syncthreads();
+    const uint32_t kt = k_tile(j & 1), vt = v_tile(j & 1);
+    const int t0 = j * kTileK;
+
+    // s = q k^T: 8 n-tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        // matrices (keys 0-7, d 0-7), (keys 0-7, d 8-15), then keys 8-15
+        uint32_t r[4];
+        ldmatrix_x4(r, kt + ((p * 16 + (mj >> 1) * 8 + mr) * LD + kk * 16 +
+                             (mj & 1) * 8) *
+                                (int)sizeof(bf16));
+        mma_bf16(s[2 * p], qf[kk], r[0], r[1]);
+        mma_bf16(s[2 * p + 1], qf[kk], r[2], r[3]);
+      }
+
+    // scale into base 2 (exp(x) = exp2(x log2 e)); mask only a tile that
+    // crosses the end of T or the diagonal
+    const int i0 = q0 + row0 + g;          // this lane's first row
+    const bool edge =
+        t0 + kTileK > t_len || (causal && t0 + kTileK - 1 > q0 + row0);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = t0 + n * 8 + 2 * t4 + (e & 1);
+        const int i = i0 + (e >> 1) * 8;
+        const bool masked = key >= t_len || (causal && key > i);
+        s[n][e] = edge && masked ? kNeg : s[n][e] * scale2;
+      }
+
+    // online softmax over the rows g and g + 8, each held by a quad
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float corr[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      corr[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - m[e >> 1]);
+        rs[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+
+    // o += p v, p = p_hi + p_lo: the C fragments of key tiles 2kk and
+    // 2kk + 1 are the A fragment of keys 16kk .. 16kk + 15
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        // matrices (keys 0-7, d 0-7), (keys 8-15, d 0-7), then d 8-15,
+        // each transposed
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, vt + ((kk * 16 + (mj & 1) * 8 + mr) * LD +
+                                   dp * 16 + (mj >> 1) * 8) *
+                                      (int)sizeof(bf16));
+        mma_bf16(o[2 * dp], ph, r[0], r[1]);
+        mma_bf16(o[2 * dp], pl, r[0], r[1]);
+        mma_bf16(o[2 * dp + 1], ph, r[2], r[3]);
+        mma_bf16(o[2 * dp + 1], pl, r[2], r[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this stage
+  }
+  cp_async_wait<0>();
+
+  // normalise, round once, stage the warp's 16 rows in its own rows of the
+  // Q tile (Q is in registers), and store 16 bytes a lane
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    inv[r] = 1.0f / fmaxf(l[r], 1e-30f);
+  }
+  bf16* tile = tiles + row0 * LD;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int col = n * 8 + 2 * t4;
+    *reinterpret_cast<uint32_t*>(tile + g * LD + col) =
+        pack_bf16(o[n][0] * inv[0], o[n][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(tile + (g + 8) * LD + col) =
+        pack_bf16(o[n][2] * inv[1], o[n][3] * inv[1]);
+  }
+  __syncwarp();
+  bf16* op = out + b * os.b + h * os.h;
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, ch = idx % CH;
+    const int i = q0 + row0 + r;
+    if (i < s_len)
+      *reinterpret_cast<uint4*>(op + i * os.s + ch * 8) =
+          *reinterpret_cast<const uint4*>(tile + r * LD + ch * 8);
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               Strides qs, Strides ks, Strides vs, Strides os, int batch,
+               int hq, int group, int s_len, int t_len, int causal,
+               float scale, int device, cudaStream_t stream) {
+  constexpr int smem = mma_smem_bytes<D>();
+  static repro::SmemLimit limit;
+  cudaError_t err = limit.ensure(flash_attention_kernel_mma<D>, smem, device);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((s_len + kTileQ - 1) / kTileQ), (unsigned)hq,
+                  (unsigned)batch);
+  flash_attention_kernel_mma<D><<<grid, kMmaThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, qs, ks, vs,
+      os, group, s_len, t_len, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_mma(const void* q, const void* k, const void* v, void* out,
+                 Strides qs, Strides ks, Strides vs, Strides os, int batch,
+                 int hq, int group, int s_len, int t_len, int d, int causal,
+                 float scale, int device, cudaStream_t stream) {
+#define REPRO_FLASH_MMA(D)                                                 \
+  case D:                                                                  \
+    return launch_mma<D>(q, k, v, out, qs, ks, vs, os, batch, hq, group,  \
+                         s_len, t_len, causal, scale, device, stream);
+  switch (d) {
+    REPRO_FLASH_MMA(16)
+    REPRO_FLASH_MMA(32)
+    REPRO_FLASH_MMA(48)
+    REPRO_FLASH_MMA(64)
+    REPRO_FLASH_MMA(80)
+    REPRO_FLASH_MMA(96)
+    REPRO_FLASH_MMA(112)
+    REPRO_FLASH_MMA(128)
+  }
+#undef REPRO_FLASH_MMA
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -246,13 +566,17 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). Strides are
-// in elements, three per tensor (B, H, S|T). Launches on `device`'s
-// `stream` without synchronising; returns cudaGetLastError().
+// in elements, three per tensor (B, H, S|T). tensor_cores: 1 runs
+// flash_attention_kernel_mma, which takes bf16 only, D a multiple of 16 up
+// to 128, strides that are multiples of 8 and 16-byte aligned pointers
+// (anything else is refused, not rerouted); 0 runs
+// flash_attention_kernel_fma. Launches on `device`'s `stream` without
+// synchronising; returns cudaGetLastError().
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* out, const int64_t* strides, int batch,
                           int hq, int hkv, int s_len, int t_len, int d,
-                          int causal, float scale, int dtype, int device,
-                          void* stream) {
+                          int causal, float scale, int dtype,
+                          int tensor_cores, int device, void* stream) {
   if (batch <= 0 || batch > 65535 || hq <= 0 || hq > 65535 || hkv <= 0 ||
       hq % hkv != 0 || s_len <= 0 || t_len <= 0 || d <= 0 || d > 256)
     return (int)cudaErrorInvalidValue;
@@ -264,12 +588,23 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   if (guard.error()) return guard.error();
   cudaStream_t s = (cudaStream_t)stream;
   const int group = hq / hkv;
+  if (tensor_cores) {
+    bool ok = dtype == 1 && d % 16 == 0 && d <= 128 &&
+              ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+               (uintptr_t)out) % 16 == 0;
+    for (int i = 0; i < 12; ++i) ok = ok && strides[i] % 8 == 0;
+    if (!ok) return (int)cudaErrorInvalidValue;
+    return dispatch_mma(q, k, v, out, qs, ks, vs, os, batch, hq, group,
+                        s_len, t_len, d, causal, scale, device, s);
+  }
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, qs, ks, vs, os, batch, hq, group,
-                           s_len, t_len, d, causal, scale, s);
+    return dispatch_fma<float>(q, k, v, out, qs, ks, vs, os, batch, hq,
+                               group, s_len, t_len, d, causal, scale, device,
+                               s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, qs, ks, vs, os, batch, hq,
-                                   group, s_len, t_len, d, causal, scale, s);
+    return dispatch_fma<__nv_bfloat16>(q, k, v, out, qs, ks, vs, os, batch,
+                                       hq, group, s_len, t_len, d, causal,
+                                       scale, device, s);
   return (int)cudaErrorInvalidValue;
 }
 

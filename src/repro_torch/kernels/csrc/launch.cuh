@@ -14,7 +14,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
 #include <climits>
+#include <mutex>
 #include <tuple>
 #include <utility>
 
@@ -42,6 +45,36 @@ class DeviceGuard {
   int device_;
   int prev_ = -1;
   cudaError_t error_;
+};
+
+// Raises one kernel's dynamic shared memory limit on a device only when a
+// launch needs more than it was last raised to there: the attribute holds
+// for the process, so a launch of a size already seen makes no driver
+// call. A launcher keeps one of these, static, per kernel instantiation,
+// and calls it after DeviceGuard has made `device` current.
+class SmemLimit {
+ public:
+  template <typename Kernel>
+  cudaError_t ensure(Kernel* kernel, int bytes, int device) {
+    if (device < 0 || device >= kDevices)
+      return cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (bytes <= raised_[device].load(std::memory_order_acquire))
+      return cudaSuccess;
+    // the limit only rises, also when two threads raise it at once
+    std::lock_guard<std::mutex> lock(mutex_);
+    const int target = std::max(bytes, raised_[device].load());
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, target);
+    if (err == cudaSuccess)
+      raised_[device].store(target, std::memory_order_release);
+    return err;
+  }
+
+ private:
+  static constexpr int kDevices = 64;
+  std::atomic<int> raised_[kDevices] = {};
+  std::mutex mutex_;
 };
 
 // One launcher parameter from a Python object: a pointer from an int (None

@@ -50,12 +50,21 @@
 
 // launch.cuh includes Python.h, which comes before the standard headers
 #include "launch.cuh"
+#include "mma.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::ldmatrix_x2;
+using repro::ldmatrix_x4;
+using repro::ldmatrix_x4_trans;
+using repro::mma_bf16;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -199,49 +208,6 @@ __device__ __forceinline__ int swz(int row, int ch, int ld) {
   return row * ld + ((ch ^ (row & 7)) << 3);
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  // a source size of 0 fills the 16 bytes with zeros and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-// d += a (16 x 16, row-major) * b (16 x 8, column-major), float32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // BC columns of C a block owns: 8, 16, 32 or 64.
 template <int BC>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -377,13 +343,12 @@ moe_gemm_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
 template <int BC>
 int launch_mma(const void* x, const void* w, void* out, int E, int C, int K,
-               int N, cudaStream_t stream) {
+               int N, int device, cudaStream_t stream) {
   static_assert(BC * kOutLd <= kStages * stage_elems<BC>(),
                 "the output tile reuses the ring");
   constexpr int smem = mma_smem_bytes<BC>();
-  cudaError_t err = cudaFuncSetAttribute(
-      moe_gemm_kernel_mma<BC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  static repro::SmemLimit limit;
+  cudaError_t err = limit.ensure(moe_gemm_kernel_mma<BC>, smem, device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((N + kBN - 1) / kBN),
                   (unsigned)((C + BC - 1) / BC), (unsigned)E);
@@ -393,11 +358,11 @@ int launch_mma(const void* x, const void* w, void* out, int E, int C, int K,
 }
 
 int dispatch_mma(const void* x, const void* w, void* out, int E, int C,
-                 int K, int N, cudaStream_t stream) {
-  if (C <= 8) return launch_mma<8>(x, w, out, E, C, K, N, stream);
-  if (C <= 16) return launch_mma<16>(x, w, out, E, C, K, N, stream);
-  if (C <= 32) return launch_mma<32>(x, w, out, E, C, K, N, stream);
-  return launch_mma<64>(x, w, out, E, C, K, N, stream);
+                 int K, int N, int device, cudaStream_t stream) {
+  if (C <= 8) return launch_mma<8>(x, w, out, E, C, K, N, device, stream);
+  if (C <= 16) return launch_mma<16>(x, w, out, E, C, K, N, device, stream);
+  if (C <= 32) return launch_mma<32>(x, w, out, E, C, K, N, device, stream);
+  return launch_mma<64>(x, w, out, E, C, K, N, device, stream);
 }
 
 }  // namespace
@@ -422,7 +387,7 @@ int repro_moe_gemm(const void* x, const void* w, void* out, int E, int C,
     if (dtype != 1 || K % 8 != 0 || N % 8 != 0 ||
         ((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) % 16 != 0)
       return (int)cudaErrorInvalidValue;
-    return dispatch_mma(x, w, out, E, C, K, N, s);
+    return dispatch_mma(x, w, out, E, C, K, N, device, s);
   }
   if (dtype == 0) return dispatch_fma<float>(x, w, out, E, C, K, N, s);
   if (dtype == 1) return dispatch_fma<bf16>(x, w, out, E, C, K, N, s);

@@ -180,11 +180,10 @@ __global__ void __launch_bounds__(kThreads) rwkv6_scan_kernel(Args a) {
 }
 
 template <typename T>
-int launch(const Args& a, int batch, cudaStream_t stream) {
+int launch(const Args& a, int batch, int device, cudaStream_t stream) {
   const size_t smem = smem_floats(a.kd, a.vd, a.chunk) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      rwkv6_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static repro::SmemLimit limit;
+  cudaError_t err = limit.ensure(rwkv6_scan_kernel<T>, (int)smem, device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)a.heads, (unsigned)batch);
   rwkv6_scan_kernel<T><<<grid, kThreads, smem, stream>>>(a);
@@ -218,8 +217,8 @@ int repro_rwkv6_scan(const void* r, const void* k, const void* v,
   repro::DeviceGuard guard(device);
   if (guard.error()) return guard.error();
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(a, batch, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, batch, s);
+  if (dtype == 0) return launch<float>(a, batch, device, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(a, batch, device, s);
   return (int)cudaErrorInvalidValue;
 }
 

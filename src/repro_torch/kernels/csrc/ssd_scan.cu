@@ -186,11 +186,10 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Args a) {
 }
 
 template <typename T>
-int launch(const Args& a, int batch, cudaStream_t stream) {
+int launch(const Args& a, int batch, int device, cudaStream_t stream) {
   const size_t smem = smem_floats(a.p, a.n, a.chunk) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static repro::SmemLimit limit;
+  cudaError_t err = limit.ensure(ssd_scan_kernel<T>, (int)smem, device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)a.heads, (unsigned)batch);
   ssd_scan_kernel<T><<<grid, kThreads, smem, stream>>>(a);
@@ -230,8 +229,8 @@ int repro_ssd_scan(const void* x, const void* dt, const void* A,
   repro::DeviceGuard guard(device);
   if (guard.error()) return guard.error();
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(a, batch, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, batch, s);
+  if (dtype == 0) return launch<float>(a, batch, device, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(a, batch, device, s);
   return (int)cudaErrorInvalidValue;
 }
 

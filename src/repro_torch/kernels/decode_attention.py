@@ -7,7 +7,16 @@ A CPU tensor goes to the plain version
 kernel, or the wrapper raises.  `decode_attention_fwd.launches` counts the
 kernel's launches, and nothing else.
 
-The kernel keeps p in float32 and normalises after the PV sum, as the TPU
+Two kernels take a CUDA call, and `variant` names the one, openly by D and
+alignment: "split" (`decode_attention_kernel_split`: one thread-block
+cluster per KV head, each block a share of the cache for all the head's
+query heads, merged across the cluster in the same launch) for float32 and
+bfloat16 with D a multiple of 8 and k and v 16-byte aligned with B, H and T
+strides that are multiples of a 16-byte vector, which every serving shape
+is; "head" (`decode_attention_kernel_head`, one block per query head) for
+every other call.
+
+Both kernels keep p in float32 and normalise after the PV sum, as the TPU
 kernel does. The model's plain `decode_attention`
 (`repro_torch.models.layers`) normalises first and rounds p to the cache's
 type before the PV product, so in bfloat16 the two differ by that rounding.
@@ -22,6 +31,17 @@ import torch
 from repro_torch.kernels.build import (check, cuda_index, dtype_code,
                                        load_library, stream_of)
 from repro_torch.kernels.ref import decode_attention_ref
+
+
+def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a call on ``q`` (B, Hq, D) and ``k``, ``v`` (B, Hkv, T, D)
+    of one type runs: "split" or "head" (see the module's docstring)."""
+    per_vector = 16 // k.element_size()
+    if q.shape[-1] % 8 or (k.data_ptr() | v.data_ptr()) % 16:
+        return "head"
+    if any(t.stride(i) % per_vector for t in (k, v) for i in range(3)):
+        return "head"
+    return "split"
 
 
 def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,7 +79,8 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = lib.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.addressof(strides), B, Hq, Hkv, T, D, cur_len,
-        1.0 / math.sqrt(D), code, index, stream_of(index))
+        1.0 / math.sqrt(D), code, variant(q, k, v) == "split", index,
+        stream_of(index))
     check(lib, err, "decode_attention")
     decode_attention_fwd.launches += 1
     return out

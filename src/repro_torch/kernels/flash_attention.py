@@ -7,8 +7,17 @@ A CPU tensor goes to the plain version
 kernel, or the wrapper raises.  `flash_attention_fwd.launches` counts the
 kernel's launches, and nothing else.
 
-The kernel keeps p in float32 and normalises after the PV sum, as the TPU
-kernel does. The model's plain `blocked_attention`
+Two kernels take a CUDA call, and `variant` names the one, openly by dtype,
+D and alignment: "mma" (`flash_attention_kernel_mma`, bf16 tensor cores fed
+by a cp.async K/V stream) for bfloat16 with D a multiple of 16 up to 128,
+every B, H and S|T stride of q, k and v a multiple of 8 elements and the
+three 16-byte aligned, which every serving shape is, in the model's
+transposed views too; "fma" (`flash_attention_kernel_fma`, CUDA cores) for
+float32 and every other call.
+
+Both kernels keep p at float32 precision and normalise after the PV sum, as
+the TPU kernel does (the tensor-core kernel multiplies V by p split into two
+bfloat16 parts). The model's plain `blocked_attention`
 (`repro_torch.models.layers`) rounds p to v's type before the PV product,
 so in bfloat16 the two differ by that rounding.
 """
@@ -22,6 +31,19 @@ import torch
 from repro_torch.kernels.build import (check, cuda_index, dtype_code,
                                        load_library, stream_of)
 from repro_torch.kernels.ref import flash_attention_ref
+
+
+def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a call on ``q`` (B, Hq, S, D) and ``k``, ``v`` (B, Hkv, T,
+    D) of one type runs: "mma" or "fma" (see the module's docstring)."""
+    D = q.shape[-1]
+    if q.dtype != torch.bfloat16 or D % 16 or D > 128:
+        return "fma"
+    if any(t.stride(i) % 8 for t in (q, k, v) for i in range(3)):
+        return "fma"
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        return "fma"
+    return "mma"
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -64,7 +86,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     err = lib.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.addressof(strides), B, Hq, Hkv, S, T, D, int(causal),
-        1.0 / math.sqrt(D), code, index, stream_of(index))
+        1.0 / math.sqrt(D), code, variant(q, k, v) == "mma", index,
+        stream_of(index))
     check(lib, err, "flash_attention")
     flash_attention_fwd.launches += 1
     return out

@@ -18,9 +18,11 @@ from repro_torch.configs.paper_workloads import squeezenet
 from repro_torch.core.vectorized import BatchedFitness
 from repro_torch.hw.catalog import mc_hetero, mc_hom_tpu_chip4
 from repro_torch.kernels import ref
+from repro_torch.kernels import decode_attention as decode_module
+from repro_torch.kernels import flash_attention as flash_module
+from repro_torch.kernels import moe_gemm as moe_gemm_module
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.kernels import moe_gemm as moe_gemm_module
 from repro_torch.kernels import rmsnorm as rmsnorm_module
 from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.ref import (decode_attention_ref,
@@ -130,50 +132,94 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, scale_dtype,
     _close(got, rmsnorm_ref(x, s), dtype)
 
 
-def _kv(cuda, layout, B, Hkv, T, D, dtype, seed):
-    """k and v as (B, Hkv, T, D) tensors: contiguous in the TPU kernel's
-    layout, or transposed views of the model's (B, T, Hkv, D) cache."""
-    out = []
-    for i in range(2):
-        a = normal((B, T, Hkv, D) if layout == "model" else (B, Hkv, T, D),
-                   seed + i)
-        t = _on(cuda, a, dtype)
-        out.append(t.transpose(1, 2) if layout == "model" else t)
-    return out
+def _heads(cuda, layout, B, H, T, D, dtype, seed, offset=0):
+    """A (B, H, T, D) operand: contiguous in the TPU kernel's layout, or a
+    transposed view of the model's (B, T, H, D) activations or cache;
+    `offset` elements into its storage (off the 16-byte grid for 1)."""
+    shape = (B, T, H, D) if layout == "model" else (B, H, T, D)
+    t = _at_offset(_on(cuda, normal(shape, seed), dtype), offset)
+    return t.transpose(1, 2) if layout == "model" else t
+
+
+def _kv(cuda, layout, B, Hkv, T, D, dtype, seed, offset=0):
+    """k and v as (B, Hkv, T, D) tensors (see `_heads`)."""
+    return [_heads(cuda, layout, B, Hkv, T, D, dtype, seed + i, offset)
+            for i in range(2)]
+
+
+def _bf16_ulps(got, want):
+    """The largest |got - want| in bf16 spacings at `want` (float32). The
+    spacing is taken at |want| >= 2**-8: below that the float32 sums' own
+    error, about 1e-6 from terms near 1, is no longer small against it."""
+    want = want.float()
+    mag = want.abs().clamp_min(2.0 ** -8)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got.float() - want).abs() / ulp).max())
 
 
 @pytest.mark.parametrize("layout,Hq,Hkv", [("tpu", 4, 4), ("model", 24, 8)])
 @pytest.mark.parametrize("B,T,D", [(4, 168, 128), (2, 200, 64),
                                    (3, 64, 32), (4, 168, 80)])
-@pytest.mark.parametrize("cur", ["one", "mid", "full"])
+@pytest.mark.parametrize("cur", ["zero", "one", "mid", "full", "past"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [0, 1])
 def test_decode_attention_kernel_matches_plain(cuda, layout, Hq, Hkv, B, T,
-                                               D, cur, dtype):
-    cur_len = {"one": 1, "mid": 100 if T > 100 else T // 2, "full": T}[cur]
+                                               D, cur, dtype, offset):
+    cur_len = {"zero": 0, "one": 1, "mid": 100 if T > 100 else T // 2,
+               "full": T, "past": T + 5}[cur]
     q = _on(cuda, normal((B, Hq, D), 7), dtype)
-    k, v = _kv(cuda, layout, B, Hkv, T, D, dtype, 8)
+    k, v = _kv(cuda, layout, B, Hkv, T, D, dtype, 8, offset)
+    assert decode_module.variant(q, k, v) == ("head" if offset else "split")
     before = decode_attention_fwd.launches
     got = decode_attention_fwd(q, k, v, cur_len)
     assert decode_attention_fwd.launches == before + 1
     _close(got, decode_attention_ref(q, k, v, cur_len), dtype)
 
 
-@pytest.mark.parametrize("layout,Hq,Hkv", [("tpu", 3, 3), ("model", 24, 8)])
+@pytest.mark.parametrize("layout,Hq,Hkv", [("tpu", 3, 3), ("model", 24, 8),
+                                           ("model", 16, 2)])
 @pytest.mark.parametrize("B,S,D", [(4, 128, 128), (1, 40, 16), (2, 96, 64),
-                                   (1, 200, 32), (4, 128, 80)])
+                                   (1, 200, 32), (4, 128, 80), (1, 1, 64),
+                                   (2, 65, 80), (1, 200, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [0, 1])
 def test_flash_attention_kernel_matches_plain(cuda, layout, Hq, Hkv, B, S, D,
-                                              causal, dtype):
-    qa = normal((B, S, Hq, D) if layout == "model" else (B, Hq, S, D), 3)
-    q = _on(cuda, qa, dtype)
-    q = q.transpose(1, 2) if layout == "model" else q
+                                              causal, dtype, offset):
+    q = _heads(cuda, layout, B, Hq, S, D, dtype, 3, offset)
     k, v = _kv(cuda, layout, B, Hkv, S, D, dtype, 4)
+    mma = dtype == "bfloat16" and not offset and D % 16 == 0 and D <= 128
+    assert flash_module.variant(q, k, v) == ("mma" if mma else "fma")
     before = flash_attention_fwd.launches
     got = flash_attention_fwd(q, k, v, causal=causal)
     assert flash_attention_fwd.launches == before + 1
     assert got.stride() == q.stride()
     _close(got, flash_attention_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("kernel,D,G", [
+    ("flash", 128, 3), ("flash", 128, 1), ("flash", 80, 1), ("flash", 64, 8),
+    ("decode", 128, 3), ("decode", 128, 1), ("decode", 80, 1),
+    ("decode", 64, 8)])
+def test_attention_kernels_in_bf16_keep_p_at_float32_precision(cuda, kernel,
+                                                               D, G):
+    # the plain version on the same bf16 inputs, in float32 and unrounded:
+    # the new kernels round only their output, so they are within 2 bf16
+    # spacings of it; p rounded to bf16 before the PV sum would not be
+    B, Hkv, S = 4, 8 // min(G, 8), 128
+    q = _heads(cuda, "model", B, G * Hkv, S, D, "bfloat16", 30)
+    k, v = _kv(cuda, "model", B, Hkv, S, D, "bfloat16", 31)
+    if kernel == "flash":
+        assert flash_module.variant(q, k, v) == "mma"
+        got = flash_attention_fwd(q, k, v, causal=True)
+        want = flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=True)
+    else:
+        q = q[:, :, 0]
+        assert decode_module.variant(q, k, v) == "split"
+        got = decode_attention_fwd(q, k, v, 100)
+        want = decode_attention_ref(q.float(), k.float(), v.float(), 100)
+    assert _bf16_ulps(got, want) <= 2.0
 
 
 def test_serving_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -326,18 +372,31 @@ def test_scan_and_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                  torch.ones(2, 8, 4, device=cuda))
 
 
-@pytest.mark.parametrize("kernel", ["rmsnorm", "moe_gemm"])
+@pytest.mark.parametrize("kernel", ["rmsnorm", "moe_gemm", "flash_attention",
+                                    "decode_attention"])
 def test_kernel_captured_in_a_cuda_graph_replays_as_the_eager_call(cuda,
                                                                    kernel):
     if kernel == "rmsnorm":
         x = _on(cuda, normal((4, 3072), 20), "bfloat16")
         y = _on(cuda, normal((3072,), 21), "bfloat16")
         fn, launches = (lambda: rmsnorm_fwd(x, y)), rmsnorm_fwd
-    else:
+    elif kernel == "moe_gemm":
         x = _on(cuda, normal((8, 8, 256), 20, 0.3), "bfloat16")
         y = _on(cuda, normal((8, 256, 128), 21, 0.3), "bfloat16")
         fn, launches = (lambda: moe_gemm(x, y)), moe_gemm
         assert moe_gemm_module.variant(x, y) == "mma"
+    elif kernel == "flash_attention":
+        x = _on(cuda, normal((4, 24, 128, 128), 20), "bfloat16")
+        y, z = _kv(cuda, "tpu", 4, 8, 128, 128, "bfloat16", 21)
+        fn, launches = (lambda: flash_attention_fwd(x, y, z)), \
+            flash_attention_fwd
+        assert flash_module.variant(x, y, z) == "mma"
+    else:   # a cluster launch
+        x = _on(cuda, normal((4, 24, 128), 20), "bfloat16")
+        y, z = _kv(cuda, "model", 4, 8, 168, 128, "bfloat16", 21)
+        fn, launches = (lambda: decode_attention_fwd(x, y, z, 144)), \
+            decode_attention_fwd
+        assert decode_module.variant(x, y, z) == "split"
     side = torch.cuda.Stream()       # warm up off the capture, as
     side.wait_stream(torch.cuda.current_stream())   # torch.cuda.graphs asks
     with torch.cuda.stream(side):

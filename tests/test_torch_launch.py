@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gemm as moe
 from repro_torch.kernels import rmsnorm as rms
 
@@ -58,6 +60,76 @@ def test_moe_gemm_other_calls_take_the_cuda_cores(case):
     x = _at_offset((2, 8, K), dtype, int(case == "x-misaligned"))
     w = _at_offset((2, K, N), dtype, int(case == "w-misaligned"))
     assert moe.variant(x, w) == "fma"
+
+
+def _model_heads(B, S, H, D, dtype=torch.bfloat16, offset=0):
+    """(B, H, S, D) as the model passes it: a transposed view of its
+    (B, S, H, D) activations or cache, `offset` elements into storage."""
+    return _at_offset((B, S, H, D), dtype, offset).transpose(1, 2)
+
+
+# (B, S = T, Hq, Hkv, D) of the serving paths' attention layers
+SERVING_ATTENTION = {"llama3.2-3b": (4, 128, 24, 8, 128),
+                     "deepseek-moe-16b": (4, 128, 16, 16, 128),
+                     "zamba2-2.7b": (4, 128, 32, 32, 80)}
+
+
+@pytest.mark.parametrize("arch", sorted(SERVING_ATTENTION))
+@pytest.mark.parametrize("S", [1, 65, 128])
+def test_flash_attention_serving_shapes_in_bf16_take_the_tensor_cores(arch,
+                                                                      S):
+    B, _, Hq, Hkv, D = SERVING_ATTENTION[arch]
+    q = _model_heads(B, S, Hq, D)
+    k, v = _model_heads(B, S, Hkv, D), _model_heads(B, S, Hkv, D)
+    assert fa.variant(q, k, v) == "mma"
+
+
+@pytest.mark.parametrize("case", ["float32", "d40", "d136", "q-misaligned",
+                                  "k-misaligned", "v-misaligned"])
+def test_flash_attention_other_calls_take_the_cuda_cores(case):
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    D = {"d40": 40, "d136": 136}.get(case, 128)
+    q, k, v = (_model_heads(2, 64, H, D, dtype, int(case == f"{n}-misaligned"))
+               for n, H in (("q", 24), ("k", 8), ("v", 8)))
+    assert fa.variant(q, k, v) == "fma"
+
+
+@pytest.mark.parametrize("arch", sorted(SERVING_ATTENTION))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_serving_shapes_take_the_split_kernel(arch, dtype):
+    B, S, Hq, Hkv, D = SERVING_ATTENTION[arch]
+    q = torch.zeros(B, 1, Hq, D, dtype=dtype)[:, 0]
+    k = _model_heads(B, S + 40, Hkv, D, dtype)     # the max_len 168 cache
+    v = _model_heads(B, S + 40, Hkv, D, dtype)
+    assert dec.variant(q, k, v) == "split"
+
+
+@pytest.mark.parametrize("case", ["d36", "k-misaligned", "v-misaligned",
+                                  "f32-odd-stride"])
+def test_decode_attention_other_calls_take_the_head_kernel(case):
+    dtype = torch.float32 if case.startswith("f32") else torch.bfloat16
+    D = 36 if case == "d36" else 128
+    q = torch.zeros(4, 24, D, dtype=dtype)
+    k = _model_heads(4, 168, 8, D, dtype, int(case == "k-misaligned"))
+    v = _model_heads(4, 168, 8, D, dtype, int(case == "v-misaligned"))
+    if case == "f32-odd-stride":       # T rows 130 floats apart
+        v = torch.zeros(4, 8, 168, 130, dtype=dtype)[..., :128]
+    assert dec.variant(q, k, v) == "head"
+
+
+@pytest.mark.parametrize("name", ["moe_gemm", "flash_attention"])
+def test_the_tensor_core_helpers_live_in_one_header(name):
+    src = (build.CSRC / f"{name}.cu").read_text()
+    assert '#include "mma.cuh"' in src
+    assert "asm volatile" not in src and "repro::mma_bf16" in src
+    assert "mma.sync" in (build.CSRC / "mma.cuh").read_text()
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_no_launcher_sets_shared_memory_on_every_launch(name):
+    # repro::SmemLimit raises a kernel's limit once per device
+    src = (build.CSRC / f"{name}.cu").read_text()
+    assert "cudaFuncSetAttribute" not in src
 
 
 @pytest.mark.parametrize("d", [64, 96, 2048, 2560, 3072, 5120])
