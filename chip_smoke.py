@@ -17,7 +17,12 @@ non-zero and prints no `ok` line:
              serving shapes of moe_gemm and flash attention must run their
              tensor-core kernels, decode attention its split kernel, and
              the attention kernels' bf16 errors are also given in bf16
-             ulps of the plain version in float32 (at most 2);
+             ulps of the plain version in float32 (at most 2); flash
+             attention also at causal S != T (the top-left mask); the two
+             scans at every shape of their grids through each of their
+             kernels (the tiled one and the old one), rwkv6 with
+             logw at and far below the clip, and at the serving shapes the
+             tiled kernel's times beside the old kernel's;
 4. fitness — BatchedFitness on the card, kernel path against the plain path
              and against the CPU, launch counts, genomes/s, kernel times;
 5. explore — Stream's explore(prefilter=True) on the card, the DSE main
@@ -27,9 +32,12 @@ non-zero and prints no `ok` line:
              on the card) through ServeEngine.serve, a serving main path
              each, with every launch count set to 0 just before it; then
              the kernel path against the plain path (kernels=False) on the
-             same weights, and the model freed before the next; for the
-             three of them with scans or expert GEMMs, the two paths again
-             on float32 weights at full width and depth.
+             same weights, one prefill wave and one decode step under the
+             profiler (device busy ms, each port kernel's share; the scans'
+             prefill runs their tiled kernels), and the model freed before
+             the next; for the three of them with scans or expert GEMMs,
+             the two paths again on float32 weights at full width and
+             depth.
 
 Then a line `{"kernels": [...]}`, the `nvidia-smi` name and power limit, and
 last `{"ok": true, "device": {...}}`.  Exits non-zero without CUDA.
@@ -221,15 +229,17 @@ def device_times(fn) -> tuple[float, list]:
     return wall * 1e3, rows
 
 
-def kernel_device_ms(fn, name: str, iters: int = 100,
-                     tries: int = 3) -> float | None:
-    """Mean device ms of the kernels whose name holds `name`, over `iters`
-    calls of `fn` (None when the profiler sees no such kernel in `tries`
-    profiles: on the H100 it has once returned a profile without the
-    cluster-launched kernel whose launches the wrapper counted)."""
+def kernel_device_ms(fn, name: str, iters: int = 100, tries: int = 3,
+                     exclude: str | None = None) -> float | None:
+    """Mean device ms of the kernels whose name holds `name` (and not
+    `exclude`), over `iters` calls of `fn` (None when the profiler sees no
+    such kernel in `tries` profiles: on the H100 it has once returned a
+    profile without the cluster-launched kernel whose launches the wrapper
+    counted)."""
     for _ in range(tries):
         _, rows = device_times(lambda: [fn() for _ in range(iters)])
-        hits = [(us, c) for us, k, c in rows if name in k]
+        hits = [(us, c) for us, k, c in rows
+                if name in k and not (exclude and exclude in k)]
         if hits:
             return sum(us for us, _ in hits) / 1e3 / sum(c for _, c in hits)
     return None
@@ -312,7 +322,7 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float,
 
 
 def timed(kern, plain, library, name: str, work, plain_iters: int = 200,
-          iters: int = 200) -> dict:
+          iters: int = 200, exclude: str | None = None) -> dict:
     """Events ms of the kernel's wrapper and of the library call (median of
     5 windows each, taken in turn), the profiler's device ms of the kernel
     and of the library call (the sum over the kernels it launches), the
@@ -323,7 +333,8 @@ def timed(kern, plain, library, name: str, work, plain_iters: int = 200,
         ms, library_ms = cuda_ms(kern, iters=iters, windows=5), None
     else:
         ms, library_ms = cuda_ms(kern, library, iters=iters, windows=5)
-    return {"ms": ms, "device_ms": kernel_device_ms(kern, name),
+    return {"ms": ms, "device_ms": kernel_device_ms(kern, name,
+                                                    exclude=exclude),
             "plain_ms": cuda_ms(plain, iters=plain_iters,
                                 warmup=max(plain_iters // 10, 1)),
             "library_ms": library_ms,
@@ -543,7 +554,8 @@ def check_flash_attention(dev) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      variant)
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.ref import (flash_attention_ref,
+                                         flash_attention_top_left_ref)
     rng = np.random.default_rng(4)
     errs, ulps = {}, {}
 
@@ -573,6 +585,16 @@ def check_flash_attention(dev) -> dict:
                     if dtype == "bfloat16":
                         ulps[key] = bf16_ulps(out, flash_attention_ref(
                             *as_float(q, k, v), causal=causal))
+    # causal S != T: the top-left mask (query i sees keys j <= i), both
+    # kernels, against the top-left plain version
+    for S, T, D in ((PROMPT, MAX_LEN, 128), (MAX_LEN, PROMPT, 128),
+                    (40, 200, 80), (65, 1, 128)):
+        for dtype in ("float32", "bfloat16"):
+            q = tensor(rng, (2, 24, S, D), dtype, dev)
+            k, v = (tensor(rng, (2, 8, T, D), dtype, dev) for _ in range(2))
+            errs[f"s_not_t-{S}x{T}x{D}-{dtype}-{variant(q, k, v)}"] = held(
+                flash_attention_fwd(q, k, v, causal=True),
+                flash_attention_top_left_ref(q, k, v), dtype)
     # queries off the 16-byte grid take the CUDA-core kernel
     q, k, v = qkv("model", SLOTS, 24, 8, PROMPT, 128, "bfloat16", offset=1)
     assert variant(q, k, v) == "fma"
@@ -635,108 +657,182 @@ def ssd_inputs(rng, B, S, H, P, N, dtype, dev, init):
     return x, dt, A, Bm, Cm, s0
 
 
+def split_products(itemsize: int, float32_operands: int) -> int:
+    """bf16 tensor-core products that hold one float32-precision product:
+    each float32 operand, and each operand of a float32 call, is split into
+    bf16 hi and lo parts, and the lo lo product is dropped (the kernels
+    show that this holds SCAN_TOL and STATE_TOL). One split operand takes
+    2 products, two take 3."""
+    return 2 if float32_operands == 1 and itemsize == 2 else 3
+
+
 def ssd_work(B, S, H, P, N, L, itemsize):
-    """(bytes, float32 operations, rate, bf16 operations) of one ssd_scan
-    launch: x, y, B, C in the working type, dt, A and the state in and out
-    in float32. B and C are shared across heads, so the function needs the
-    causal C.B tile once per (b, chunk), a product of bf16 operands; per
-    (b, h, chunk) the intra-chunk and state terms of y and the state update
-    take the float32 decay and state, so they count at the float32 rate."""
+    """(bytes, float32 operations, rate, bf16 tensor operations) of one
+    ssd_scan launch: x, y, B, C in the working type, dt, A and the state in
+    and out in float32. B and C are shared across heads, so the function
+    needs the causal C.B tile once per (b, chunk), exact on bf16 tensor
+    cores in bf16. Per (b, h, chunk) the intra-chunk term of y, y from the
+    state and the state update each multiply a float32 operand (the decayed
+    scores, the state, x dt decayed) by one of the working type, so they
+    count at the tensor rate times `split_products`; the decays, the
+    cumsum, x dt and the state's decay count at the float32 rate."""
     n_bytes = (2 * B * S * H * P + 2 * B * S * N) * itemsize + \
         4 * (B * S * H + H + 2 * B * H * P * N)
-    scores = B * (S // L) * (L * (L + 1) // 2) * 2 * N
-    per_head = P * L * (L + 1) + L * P * 2 * N + P * N * 2 * L
-    return n_bytes, B * H * (S // L) * per_head, F32_OPS_PER_S, scores
+    chunks = B * H * (S // L)
+    scores = B * (S // L) * (L * (L + 1) // 2) * 2 * N * \
+        (1 if itemsize == 2 else 3)
+    products = P * L * (L + 1) + L * P * 2 * N + P * N * 2 * L
+    elementwise = 3 * (L * (L + 1) // 2) + 3 * L + 2 * L * P + P * N
+    return (n_bytes, chunks * elementwise, F32_OPS_PER_S,
+            scores + chunks * products * split_products(itemsize, 1))
+
+
+def scan_times(call, plain, name: str, work) -> dict:
+    """`timed` of a scan's tiled kernel and of its old kernel, both through
+    the launcher, in one run: {"tiled": times, "old": times}."""
+    out, tiled = {}, f"{name}_tiled"
+    for kernel in ("tiled", "old"):
+        out[kernel] = timed(lambda: call(kernel), plain, None,
+                            tiled if kernel == "tiled" else name, work,
+                            plain_iters=10,
+                            exclude=None if kernel == "tiled" else tiled)
+        assert out[kernel]["device_ms"] is not None, (name, kernel)
+    return out
 
 
 def check_ssd_scan(dev) -> dict:
     from repro_torch.kernels.ref import SCAN_TOL, STATE_TOL, ssd_scan_ref
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan, variant
     rng = np.random.default_rng(6)
     errs = {}
+    # L, P and N off the tensor cores' 16 and P off the slab of 32 included
     for B, S, H, P, N, L in ((1, 32, 1, 8, 4, 8), (2, 64, 3, 16, 8, 16),
-                             (1, 128, 2, 32, 16, 32),
+                             (1, 128, 2, 32, 16, 32), (1, 48, 2, 8, 8, 8),
+                             (2, 72, 3, 48, 24, 24), (1, 80, 2, 80, 40, 40),
                              (SLOTS, PROMPT, 80, 64, 64, 64)):
         for dtype in ("float32", "bfloat16"):
             for init in (False, True):
                 x, dt, A, Bm, Cm, s0 = ssd_inputs(rng, B, S, H, P, N, dtype,
                                                   dev, init)
-                y, s = ssd_scan(x, dt, A, Bm, Cm, chunk=L, initial_state=s0)
+                route = variant(x, Bm, Cm, L)
+                # N = 4 in bf16 is 8 bytes a row: the old kernel's
+                assert route == ("old" if N * x.element_size() < 16
+                                 else "tiled"), (B, S, H, P, N, dtype)
                 want_y, want_s = ssd_scan_ref(x, dt, A, Bm, Cm, s0)
-                key = f"{B}x{S}x{H}x{P}x{N}-L{L}-{dtype}-init{int(init)}"
-                errs[key] = held_tol(y, want_y, SCAN_TOL[dtype])
-                errs[key + "-state"] = held_tol(s, want_s, STATE_TOL)
+                for kernel in dict.fromkeys((route, "old")):
+                    y, s = ssd_scan(x, dt, A, Bm, Cm, chunk=L,
+                                    initial_state=s0, kernel=kernel)
+                    key = (f"{B}x{S}x{H}x{P}x{N}-L{L}-{dtype}-"
+                           f"init{int(init)}-{kernel}")
+                    errs[key] = held_tol(y, want_y, SCAN_TOL[dtype])
+                    errs[key + "-state"] = held_tol(s, want_s, STATE_TOL)
     # zamba2-2.7b's prefill: the cache's state goes in at every layer
     x, dt, A, Bm, Cm, s0 = ssd_inputs(rng, SLOTS, PROMPT, 80, 64, 64,
                                       "bfloat16", dev, True)
-    t = timed(lambda: ssd_scan(x, dt, A, Bm, Cm, initial_state=s0),
-              lambda: ssd_scan_ref(x, dt, A, Bm, Cm, s0), None,
-              "ssd_scan_kernel", ssd_work(SLOTS, PROMPT, 80, 64, 64, 64, 2),
-              plain_iters=10)
+    assert variant(x, Bm, Cm) == "tiled"
+    times = scan_times(
+        lambda kernel: ssd_scan(x, dt, A, Bm, Cm, initial_state=s0,
+                                kernel=kernel),
+        lambda: ssd_scan_ref(x, dt, A, Bm, Cm, s0), "ssd_scan_kernel",
+        ssd_work(SLOTS, PROMPT, 80, 64, 64, 64, 2))
+    t = dict(times["tiled"], variant="tiled")
     t["max_abs_err"] = held_tol(ssd_scan(x, dt, A, Bm, Cm,
                                          initial_state=s0)[0],
                                 ssd_scan_ref(x, dt, A, Bm, Cm, s0)[0],
                                 SCAN_TOL["bfloat16"])
+    t["old"] = times["old"]
     return {"errors": errs, "main": t, "tolerance": SCAN_TOL,
             "state_tolerance": STATE_TOL,
             "shape": [SLOTS, PROMPT, 80, 64, 64, 64]}
 
 
-def rwkv_inputs(rng, B, S, H, K, V, dtype, dev, init):
+def rwkv_inputs(rng, B, S, H, K, V, dtype, dev, init, logw_case="some"):
+    """r, k, v, logw, u and the initial state; logw random with every 7th
+    position below the clip ("some"), all at the clip ("at_clip") or all
+    far below it ("below"): in both last cases every cum reaches -6 L."""
     import torch
     r = tensor(rng, (B, S, H, K), dtype, dev)
     k = tensor(rng, (B, S, H, K), dtype, dev)
     v = tensor(rng, (B, S, H, V), dtype, dev)
     logw = -torch.nn.functional.softplus(
         tensor(rng, (B, S, H, K), "float32", dev)) - 0.5
-    logw[:, ::7] -= 20.0                    # below the clip at -6
+    if logw_case == "some":
+        logw[:, ::7] -= 20.0                # below the clip at -6
+    else:
+        logw.fill_(-6.0 if logw_case == "at_clip" else -40.0)
     u = 0.1 * tensor(rng, (H, K), "float32", dev)
     s0 = tensor(rng, (B, H, K, V), "float32", dev) if init else None
     return r, k, v, logw, u, s0
 
 
-def rwkv_work(B, S, H, K, V, L, itemsize) -> tuple[float, float, float]:
-    """(bytes, float32 operations, rate) of one rwkv6_scan launch: r, k, v,
-    o in the working type, the clipped logw, u and the state in and out in
-    float32; per (b, h, chunk) the decayed scores (3 per k: two products
-    and the exponential), the bonus, the decayed r and k, o and the state
-    update, as the kernel does them."""
+def rwkv_work(B, S, H, K, V, L, itemsize, sub: int = 8):
+    """(bytes, float32 operations, rate, bf16 tensor operations) of one
+    rwkv6_scan launch: r, k, v, o in the working type, logw, u and the
+    state in and out in float32. Per (b, h, chunk) the products, at the
+    tensor rate times `split_products`: the causal score tile from the
+    decayed r and k factors (both float32), o from the scores (float32)
+    and v, o from r e^cum_ex and the state (both float32), and the state
+    update from the decayed k (float32) and v. At the float32 rate: the
+    cumsum, the exponentials the factored score tile needs (L K (L/sub +
+    1) for the factors, L (sub - 1) K / 2 on the diagonal sub-blocks), the
+    decayed r and k, the bonus and the state's decay."""
     n_bytes = (3 * B * S * H * K + B * S * H * V) * itemsize + \
         4 * (B * S * H * K + H * K + 2 * B * H * K * V)
-    per_chunk = (L * (L - 1) // 2) * 3 * K + 3 * L * K + 4 * L * K + \
-        L * (L - 1) * V + 2 * L * V + 2 * L * V * K + K * V * (2 * L + 1)
-    return n_bytes, B * H * (S // L) * per_chunk, F32_OPS_PER_S
+    chunks = B * H * (S // L)
+    pairs = L * (L - 1) // 2
+    products = 2 * pairs * K * split_products(itemsize, 2) + \
+        2 * pairs * V * split_products(itemsize, 1) + \
+        2 * L * K * V * split_products(itemsize, 2) + \
+        2 * K * V * L * split_products(itemsize, 1)
+    exps = L * K * (L // sub + 1) + L * (sub - 1) * K // 2
+    elementwise = L * K + exps + 4 * L * K + 3 * L * K + 2 * L * V + K * V
+    return (n_bytes, chunks * elementwise, F32_OPS_PER_S,
+            chunks * products)
 
 
 def check_rwkv6_scan(dev) -> dict:
+    import torch
     from repro_torch.kernels.ref import SCAN_TOL, STATE_TOL, rwkv6_scan_ref
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, variant
     rng = np.random.default_rng(7)
     errs = {}
+    # L off the tensor cores' 16, K off 16 and V off the slab of 32 included
     for B, S, H, K, V, L in ((1, 32, 1, 8, 8, 8), (2, 64, 3, 16, 16, 16),
-                             (1, 96, 2, 32, 16, 32),
+                             (1, 96, 2, 32, 16, 32), (2, 72, 3, 64, 48, 24),
+                             (1, 64, 2, 40, 80, 16),
                              (SLOTS, PROMPT, 40, 64, 64, 32)):
         for dtype in ("float32", "bfloat16"):
             for init in (False, True):
-                r, k, v, logw, u, s0 = rwkv_inputs(rng, B, S, H, K, V,
-                                                   dtype, dev, init)
-                o, s = rwkv6_scan(r, k, v, logw, u, chunk=L,
-                                  initial_state=s0)
-                want_o, want_s = rwkv6_scan_ref(r, k, v, logw, u, s0)
-                key = f"{B}x{S}x{H}x{K}x{V}-L{L}-{dtype}-init{int(init)}"
-                errs[key] = held_tol(o, want_o, SCAN_TOL[dtype])
-                errs[key + "-state"] = held_tol(s, want_s, STATE_TOL)
+                for case in ("some", "at_clip", "below"):
+                    r, k, v, logw, u, s0 = rwkv_inputs(
+                        rng, B, S, H, K, V, dtype, dev, init, case)
+                    assert variant(r, k, v, logw, L) == "tiled"
+                    want_o, want_s = rwkv6_scan_ref(r, k, v, logw, u, s0)
+                    for kernel in ("tiled", "old"):
+                        o, s = rwkv6_scan(r, k, v, logw, u, chunk=L,
+                                          initial_state=s0, kernel=kernel)
+                        assert bool(torch.isfinite(o).all()) and \
+                            bool(torch.isfinite(s).all())
+                        key = (f"{B}x{S}x{H}x{K}x{V}-L{L}-{dtype}-"
+                               f"init{int(init)}-logw_{case}-{kernel}")
+                        errs[key] = held_tol(o, want_o, SCAN_TOL[dtype])
+                        errs[key + "-state"] = held_tol(s, want_s,
+                                                        STATE_TOL)
     # rwkv6-3b's prefill: the cache's state goes in at every layer
     r, k, v, logw, u, s0 = rwkv_inputs(rng, SLOTS, PROMPT, 40, 64, 64,
                                        "bfloat16", dev, True)
-    t = timed(lambda: rwkv6_scan(r, k, v, logw, u, initial_state=s0),
-              lambda: rwkv6_scan_ref(r, k, v, logw, u, s0), None,
-              "rwkv6_scan_kernel", rwkv_work(SLOTS, PROMPT, 40, 64, 64, 32, 2),
-              plain_iters=10)
+    assert variant(r, k, v, logw) == "tiled"
+    times = scan_times(
+        lambda kernel: rwkv6_scan(r, k, v, logw, u, initial_state=s0,
+                                  kernel=kernel),
+        lambda: rwkv6_scan_ref(r, k, v, logw, u, s0), "rwkv6_scan_kernel",
+        rwkv_work(SLOTS, PROMPT, 40, 64, 64, 32, 2))
+    t = dict(times["tiled"], variant="tiled")
     t["max_abs_err"] = held_tol(rwkv6_scan(r, k, v, logw, u,
                                            initial_state=s0)[0],
                                 rwkv6_scan_ref(r, k, v, logw, u, s0)[0],
                                 SCAN_TOL["bfloat16"])
+    t["old"] = times["old"]
     return {"errors": errs, "main": t, "tolerance": SCAN_TOL,
             "state_tolerance": STATE_TOL,
             "shape": [SLOTS, PROMPT, 40, 64, 64, 32]}
@@ -880,6 +976,28 @@ def serve_phase(dev, counters, arch: str) -> dict:
              (("kernels", engine), ("plain", plain), ("kernels_again", engine),
               ("plain_again", plain))}
 
+    # one prefill wave under the profiler: device busy ms, each port
+    # kernel's share, and the scans' kernels by name
+    device_times(lambda: engine.prefill_step(requests()[:SLOTS]).tolist())
+    pre_ms, pre_rows = device_times(
+        lambda: engine.prefill_step(requests()[:SLOTS]).tolist())
+    pre_kernels = [r for r in pre_rows if not r[1].startswith("aten::")]
+    pre_busy = sum(r[0] for r in pre_kernels) / 1e3
+    by_kernel = {}
+    for name in counters:
+        hits = [r for r in pre_kernels if f"{name}_kernel" in r[1]]
+        by_kernel[name] = {"device_ms": sum(r[0] for r in hits) / 1e3,
+                           "count": sum(r[2] for r in hits)}
+    # the bf16 prefill runs the redesigned scans
+    for name in ("ssd_scan", "rwkv6_scan"):
+        if launches[name]:
+            names = [k for _, k, _ in pre_kernels if f"{name}_kernel" in k]
+            assert names and all(f"{name}_kernel_tiled" in k for k in names), \
+                names
+            assert by_kernel[name]["count"] == per_prefill[name]
+    scan_ms = by_kernel["ssd_scan"]["device_ms"] + \
+        by_kernel["rwkv6_scan"]["device_ms"]
+
     # one decode step under the profiler: device busy and idle share
     tok = engine.decode_once(engine.prefill_step(requests()[:SLOTS]))
     device_times(lambda: engine.decode_once(tok).tolist())   # warm-up
@@ -909,6 +1027,14 @@ def serve_phase(dev, counters, arch: str) -> dict:
         "prefill_logits_max_abs_diff": diff, "logits_tol": logits_tol,
         "prefill_logits_max_abs": logits_max,
         "first_tokens_compared": int(clear.sum()),
+        "prefill_profile": {
+            "wall_ms": pre_ms, "device_busy_ms": pre_busy,
+            "device_idle_share": 1 - pre_busy / pre_ms,
+            "kernel_launches": sum(r[2] for r in pre_kernels),
+            "port_kernels": by_kernel, "scan_device_ms": scan_ms,
+            "scan_share": scan_ms / pre_busy,
+            "top": [{"name": k[:90], "device_ms": us / 1e3, "count": c}
+                    for us, k, c in pre_kernels[:10]]},
         "decode_step_profile": {
             "wall_ms": step_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / step_ms,
@@ -925,7 +1051,8 @@ def serve_phase(dev, counters, arch: str) -> dict:
 def float32_check(dev, cfg) -> dict:
     """`cfg` at full width and depth in float32, seeded weights: the kernel
     path's prefill and first decode logits against the plain path's, and
-    the largest difference."""
+    the largest difference. The kernel path's prefill runs under the
+    profiler, which shows that its scans ran their tiled kernels."""
     import dataclasses
 
     import torch
@@ -937,21 +1064,35 @@ def float32_check(dev, cfg) -> dict:
                              device=dev)
     tokens = torch.as_tensor(np.random.default_rng(6).integers(
         1, cfg.vocab, size=(SLOTS, PROMPT)), device=dev)
-    out = {}
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    wrappers = {"ssd_scan": ssd_scan, "rwkv6_scan": rwkv6_scan}
+    out, scans = {}, {}
     for name, use in (("kernels", None), ("plain", False)):
         caches = zoo_caches(zoo, cfg, dev)
-        pre, caches = zoo.prefill(cfg, params, {"tokens": tokens}, caches,
-                                  kernels=use)
+        got, before = [], {k: w.launches for k, w in wrappers.items()}
+        _, rows = device_times(lambda: got.append(zoo.prefill(
+            cfg, params, {"tokens": tokens}, caches, kernels=use)))
+        pre, caches = got[0]
         dec, _ = zoo.decode_step(cfg, params, pre.argmax(-1)[:, None],
                                  caches, PROMPT, kernels=use)
         out[name] = (pre, dec)
+        for scan, wrapper in wrappers.items():
+            if use is None and wrapper.launches > before[scan]:
+                # every launch of the float32 prefill ran the tiled kernel
+                hits = [(k, c) for _, k, c in rows if f"{scan}_kernel" in k]
+                assert hits and all(f"{scan}_kernel_tiled" in k
+                                    for k, _ in hits), hits
+                scans[scan] = sum(c for _, c in hits)
+                assert scans[scan] == wrapper.launches - before[scan], \
+                    (scan, scans[scan])
     diffs = [float((a - b).abs().max())
              for a, b in zip(out["kernels"], out["plain"])]
     assert max(diffs) <= F32_LOGITS_TOL, diffs
     res = {"n_layers": cfg.n_layers, "prefill_logits_max_abs_diff": diffs[0],
            "decode_logits_max_abs_diff": diffs[1],
            "logits_max_abs": float(out["plain"][0].abs().max()),
-           "tol": F32_LOGITS_TOL}
+           "tol": F32_LOGITS_TOL, "tiled_scan_launches": scans}
     del params, out
     torch.cuda.empty_cache()
     return res
@@ -1189,6 +1330,9 @@ def main() -> int:
         for extra in ("variant", "max_ulps"):
             if extra in m:
                 row[extra] = m[extra]
+        if "old" in m:      # the old kernel of a redesigned scan, same run
+            row["old"] = {key: m["old"][key] for key in
+                          ("ms", "device_ms", "plain_ms", "bound_ms")}
         assert row["launches"] > 0, row
         rows.append(row)
     emit({"kernels": rows})

@@ -13,8 +13,8 @@
 // (flash_attention.py:54-56, 65-67). The model's plain blocked_attention
 // rounds p to v's type before the PV product (models/layers.py:156-158).
 // The causal mask is aligned top-left (i >= j), as in the TPU kernel and
-// blocked_attention; the wrapper takes causal inputs only at S = T, where
-// every alignment agrees (see ROADMAP queue 3, item 2).
+// blocked_attention, at any S and T: for S > T the rows i >= T see every
+// key, and each tile's last key (kv_end) is min(T, its last row + 1).
 //
 // Layouts: q (B, Hq, S, D), k and v (B, Hkv, T, D), out (B, Hq, S, D), each
 // given by its element strides for B, H and S|T, with the D axis

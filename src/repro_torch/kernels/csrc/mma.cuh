@@ -1,7 +1,8 @@
-// The tensor-core building blocks that moe_gemm.cu and flash_attention.cu
-// share: 16-byte cp.async copies into shared memory, ldmatrix loads of
-// bf16 fragments, and the bf16 mma.sync.m16n8k16 product with float32
-// sums. Each is one PTX instruction (sm_80 and later, so sm_90a too).
+// The tensor-core building blocks that moe_gemm.cu, flash_attention.cu and
+// the two scans share: 16- and 4-byte cp.async copies into shared memory,
+// ldmatrix loads of bf16 fragments, the bf16 mma.sync.m16n8k16 product
+// with float32 sums, and 2^x on the MUFU unit. Each is one PTX instruction
+// (sm_80 and later, so sm_90a too).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -16,6 +17,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// The same for 4 bytes (through L1: the .cg form takes only 16), for
+// operands whose rows are too far apart for 16-byte copies.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -61,6 +70,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x, one MUFU operation (within 2 float32 ulps); a result below 2^-126
+// is flushed to 0, which the scans' exponents (never positive, their terms
+// decaying) can afford. exp2f adds a range fix-up of three instructions
+// for those results.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace repro

@@ -3,8 +3,9 @@
 `repro/kernels/flash_attention.py:flash_attention_fwd`.
 
 A CPU tensor goes to the plain version
-(`repro_torch.kernels.ref.flash_attention_ref`); a CUDA tensor goes to the
-kernel, or the wrapper raises.  `flash_attention_fwd.launches` counts the
+(`repro_torch.kernels.ref.flash_attention_ref`, and for causal S != T
+`flash_attention_top_left_ref`); a CUDA tensor goes to the kernel, or the
+wrapper raises.  `flash_attention_fwd.launches` counts the
 kernel's launches, and nothing else.
 
 Two kernels take a CUDA call, and `variant` names the one, openly by dtype,
@@ -30,7 +31,8 @@ import torch
 
 from repro_torch.kernels.build import (check, cuda_index, dtype_code,
                                        load_library, stream_of)
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_ref,
+                                     flash_attention_top_left_ref)
 
 
 def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -51,9 +53,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """``q``: (B, Hq, S, D); ``k``, ``v``: (B, Hkv, T, D) with Hq = G * Hkv
     -> (B, Hq, S, D) in q's type, laid out as q is.  Any strides work on
     CUDA as long as the D axis is contiguous, so the model's (B, S, H, D)
-    activations pass as ``x.transpose(1, 2)``.  Causal attention needs
-    S == T: for S != T the mask's alignment is in dispute between the
-    reference's kernel (top-left) and its oracle (bottom-right)."""
+    activations pass as ``x.transpose(1, 2)``.  The causal mask is aligned
+    top-left, as the TPU kernel aligns it: query i sees keys j <= i, so for
+    S > T the rows i >= T see every key."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
@@ -62,11 +64,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != B or k.shape[3] != D or Hq % Hkv:
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
-    if causal and S != T:
-        raise ValueError(f"causal attention needs S == T, not S={S}, T={T}")
     index = cuda_index(q, k, v)
     if index < 0:
-        return flash_attention_ref(q, k, v, causal=causal)
+        plain = flash_attention_top_left_ref if causal and S != T \
+            else flash_attention_ref
+        return plain(q, k, v, causal=causal)
     code = dtype_code("q", q)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v types differ: {q.dtype}, {k.dtype}, "

@@ -81,18 +81,34 @@ def _grouped_scores(q, k):
     return torch.einsum("bhgsd,bhtd->bhgst", qg, k.float()) / math.sqrt(D)
 
 
-def flash_attention_ref(q, k, v, causal: bool = True):
-    """q: (B,Hq,S,D); k,v: (B,Hkv,T,D) -> (B,Hq,S,D). Naive softmax
-    attention; the causal mask is the reference oracle's `tril(k=T-S)`."""
+def _softmax_attention(q, k, v, causal: bool, diagonal: int):
+    """Naive softmax attention, the causal mask `tril(diagonal)`."""
     B, Hq, S, D = q.shape
     T = k.shape[2]
     s = _grouped_scores(q, k)
     if causal:
-        mask = torch.ones(S, T, dtype=torch.bool, device=q.device).tril(T - S)
+        mask = torch.ones(S, T, dtype=torch.bool,
+                          device=q.device).tril(diagonal)
         s = torch.where(mask, s, NEG)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgst,bhtd->bhgsd", p, v.float())
     return out.reshape(B, Hq, S, v.shape[-1]).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True):
+    """q: (B,Hq,S,D); k,v: (B,Hkv,T,D) -> (B,Hq,S,D). Naive softmax
+    attention; the causal mask is the reference oracle's `tril(k=T-S)`,
+    which aligns it bottom-right: the oracle at S = T only."""
+    return _softmax_attention(q, k, v, causal, k.shape[2] - q.shape[2])
+
+
+def flash_attention_top_left_ref(q, k, v, causal: bool = True):
+    """As `flash_attention_ref`, with the causal mask aligned top-left
+    (query i sees keys j <= i, so rows i >= T see every key), as the TPU
+    kernel (`repro/kernels/flash_attention.py:44-47`), both CUDA kernels and
+    `models.layers.blocked_attention` align it: the plain version for
+    causal S != T. At S = T the two masks are one."""
+    return _softmax_attention(q, k, v, causal, 0)
 
 
 def decode_attention_ref(q, k, v, cur_len):

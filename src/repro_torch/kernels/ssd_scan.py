@@ -11,6 +11,16 @@ The kernel computes the TPU kernel's function, extended by what
 the final state out.  The TPU kernel zeroes its state at the first chunk and
 never writes it out (`ssd_scan.py:24-26`); with no initial state the output
 here is its function.
+
+Two kernels take a CUDA call, and `variant` names the one, openly by shape
+and alignment, before the launch: "tiled" (`ssd_scan_kernel_tiled`, a block
+per slab of 32 columns of P; in bfloat16 every product on tensor cores,
+the float32 operand of each split into bf16 hi and lo parts; in float32
+register tiles on CUDA cores) for float32 and bfloat16 with L <= 64,
+N <= 64, P and N whole 16-byte runs of elements and x, B and C on the
+16-byte grid, which every serving call is, the model's slices of its conv
+output included; "old" (`ssd_scan_kernel`, a block per head) for every
+other call.
 """
 from __future__ import annotations
 
@@ -23,17 +33,39 @@ from repro_torch.kernels.build import (SMEM_LIMIT, check, cuda_index,
 from repro_torch.kernels.ref import ssd_scan_ref
 
 
+MAX_L = MAX_N = 64      # the tiled kernel's kMaxL and kMaxN
+KERNELS = ("tiled", "old")
+
 
 def smem_bytes(P: int, N: int, L: int) -> int:
-    """Shared memory of one block, as `csrc/ssd_scan.cu:smem_floats`: the
-    (P, N+1) state, the (L, P) x*dt tile, the (L, N+1) B and C tiles, the
-    (L, L) score tile and three vectors of L."""
+    """Shared memory of one block of the old kernel, as
+    `csrc/ssd_scan.cu:smem_floats`: the (P, N+1) state, the (L, P) x*dt
+    tile, the (L, N+1) B and C tiles, the (L, L) score tile and three
+    vectors of L."""
     return 4 * (P * (N + 1) + L * P + 2 * L * (N + 1) + L * L + 3 * L)
+
+
+def variant(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+            chunk: int = 64) -> str:
+    """The kernel a CUDA call on float32 or bfloat16 ``x`` (B, S, H, P) and
+    ``Bm``, ``Cm`` (B, S, N) runs: "tiled" or "old" (see the module's
+    docstring)."""
+    size = x.element_size()
+    P, N, L = x.shape[3], Bm.shape[2], min(chunk, x.shape[1])
+    if L > MAX_L or N > MAX_N or (P * size) % 16 or (N * size) % 16:
+        return "old"
+    strides = (*x.stride()[:3], *Bm.stride()[:2], *Cm.stride()[:2])
+    if any((st * size) % 16 for st in strides):
+        return "old"
+    if (x.data_ptr() | Bm.data_ptr() | Cm.data_ptr()) % 16:
+        return "old"
+    return "tiled"
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 64,
-             initial_state: torch.Tensor | None = None):
+             initial_state: torch.Tensor | None = None,
+             kernel: str | None = None):
     """x: (B,S,H,P); dt: (B,S,H); A: (H,); Bm, Cm: (B,S,N) shared across
     heads; initial_state: float32 (B,H,P,N) or None (zeros) ->
     (y (B,S,H,P) in x's type, float32 final state (B,H,P,N)).
@@ -41,7 +73,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     S must be a multiple of the chunk ``L = min(chunk, S)``, as in the
     reference.  On CUDA: x, Bm and Cm float32 or bfloat16 of one type with
     their last axis contiguous (any other strides, so the model's slices of
-    its conv output pass without a copy); dt, A and the state float32."""
+    its conv output pass without a copy); dt, A and the state float32.
+    ``kernel`` ("tiled" or "old") names the CUDA kernel instead of
+    `variant`, to time the old kernel beside the tiled one; "tiled" on a
+    call that `variant` sends to the old kernel raises."""
     if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 3 or Bm.shape != Cm.shape:
         raise ValueError(f"shapes: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
                          f"B {tuple(Bm.shape)}, C {tuple(Cm.shape)}")
@@ -78,7 +113,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                   not initial_state.is_contiguous()):
         raise ValueError("x, B and C need a contiguous last axis; A and "
                          "initial_state must be contiguous")
-    if smem_bytes(P, N, L) > SMEM_LIMIT:
+    route = variant(x, Bm, Cm, chunk)
+    if kernel is None:
+        kernel = route
+    elif kernel not in KERNELS or (kernel, route) == ("tiled", "old"):
+        raise ValueError(f"kernel {kernel!r}: the {route} kernel takes this "
+                         f"call")
+    if kernel == "old" and smem_bytes(P, N, L) > SMEM_LIMIT:
         raise ValueError(f"P={P}, N={N}, L={L} need more shared memory than "
                          f"a block has")
     if x.numel() == 0 or N == 0:
@@ -95,7 +136,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     err = lib.launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), s0, y.data_ptr(), s_out.data_ptr(),
-        ctypes.addressof(strides), Bsz, S, H, P, N, L, code, index,
+        ctypes.addressof(strides), Bsz, S, H, P, N, L, code,
+        int(kernel == "tiled"), index,
         stream_of(index))
     check(lib, err, "ssd_scan")
     ssd_scan.launches += 1

@@ -26,10 +26,14 @@ from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels import rmsnorm as rmsnorm_module
 from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.ref import (decode_attention_ref,
-                                     flash_attention_ref, moe_gemm_ref,
-                                     rmsnorm_ref, rwkv6_scan_ref,
-                                     serialize_prefix_ref, ssd_scan_ref)
+                                     flash_attention_ref,
+                                     flash_attention_top_left_ref,
+                                     moe_gemm_ref, rmsnorm_ref,
+                                     rwkv6_scan_ref, serialize_prefix_ref,
+                                     ssd_scan_ref)
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+from repro_torch.kernels import rwkv6_scan as rwkv_module
+from repro_torch.kernels import ssd_scan as ssd_module
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.wavefront import serialize_prefix
@@ -197,6 +201,23 @@ def test_flash_attention_kernel_matches_plain(cuda, layout, Hq, Hkv, B, S, D,
     _close(got, flash_attention_ref(q, k, v, causal=causal), dtype)
 
 
+@pytest.mark.parametrize("S,T", [(32, 64), (64, 32), (128, 200), (200, 128),
+                                 (1, 65), (65, 1)])
+@pytest.mark.parametrize("D", [128, 80, 40])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_flash_attention_with_s_not_t_aligns_top_left(cuda, S, T, D,
+                                                            dtype):
+    # query i sees keys j <= i, as the TPU kernel does; rows i >= T every key
+    q = _heads(cuda, "model", 2, 6, S, D, dtype, 40)
+    k, v = _kv(cuda, "model", 2, 2, T, D, dtype, 41)
+    mma = dtype == "bfloat16" and D % 16 == 0
+    assert flash_module.variant(q, k, v) == ("mma" if mma else "fma")
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, causal=True)
+    assert flash_attention_fwd.launches == before + 1
+    _close(got, flash_attention_top_left_ref(q, k, v), dtype)
+
+
 @pytest.mark.parametrize("kernel,D,G", [
     ("flash", 128, 3), ("flash", 128, 1), ("flash", 80, 1), ("flash", 64, 8),
     ("decode", 128, 3), ("decode", 128, 1), ("decode", 80, 1),
@@ -229,8 +250,6 @@ def test_serving_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         rmsnorm_fwd(x.t(), torch.ones(4, device=cuda))
     q = torch.ones(1, 2, 8, 16, device=cuda)
-    with pytest.raises(ValueError):          # causal needs S == T
-        flash_attention_fwd(q, q[:, :, :4], q[:, :, :4])
     with pytest.raises(ValueError):          # D must be contiguous
         flash_attention_fwd(q.transpose(2, 3), q.transpose(2, 3),
                             q.transpose(2, 3), causal=False)
@@ -257,13 +276,18 @@ SCAN_TOL = {k: dict(rtol=t, atol=t) for k, t in ref.SCAN_TOL.items()}
 STATE_TOL = dict(rtol=ref.STATE_TOL, atol=ref.STATE_TOL)
 
 
+# (B, S, H, P, N, chunk): every shape takes the tiled kernel but N = 4 in
+# bf16 (8 bytes a row), which takes the old one; L, P and N off the tensor
+# cores' 16 and P off the slab of 32 (zero-padded tiles) included
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [
     (1, 32, 1, 8, 4, 8), (2, 64, 3, 16, 8, 16), (1, 128, 2, 32, 16, 32),
-    (4, 128, 80, 64, 64, 64), (2, 64, 5, 64, 64, 64)])
+    (4, 128, 80, 64, 64, 64), (2, 64, 5, 64, 64, 64), (1, 48, 2, 8, 8, 8),
+    (2, 72, 3, 48, 24, 24), (1, 80, 2, 80, 40, 40)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("kernel", [None, "old"])
 def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype,
-                                       init):
+                                       init, kernel):
     x = _on(cuda, normal((B, S, H, P), 0), dtype)
     dt = torch.nn.functional.softplus(_on(cuda, normal((B, S, H), 1),
                                           "float32"))
@@ -271,8 +295,14 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype,
     Bm = _on(cuda, normal((B, S, N), 3), dtype)
     Cm = _on(cuda, normal((B, S, N), 4), dtype)
     s0 = _on(cuda, normal((B, H, P, N), 5), "float32") if init else None
+    route = ssd_module.variant(x, Bm, Cm, chunk)
+    assert route == ("old" if N == 4 and dtype == "bfloat16" else "tiled")
+    if route == "old":
+        with pytest.raises(ValueError):      # not the tiled kernel's call
+            ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, kernel="tiled")
     before = ssd_scan.launches
-    y, s = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=s0)
+    y, s = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=s0,
+                    kernel=kernel)
     assert ssd_scan.launches == before + 1 and y.dtype == x.dtype
     want_y, want_s = ssd_scan_ref(x, dt, A, Bm, Cm, s0)
     torch.testing.assert_close(y.float(), want_y.float(), **SCAN_TOL[dtype])
@@ -287,6 +317,7 @@ def test_ssd_scan_kernel_takes_the_models_strided_slices(cuda):
     dt = torch.nn.functional.softplus(_on(cuda, normal((2, 64, 4), 7),
                                           "float32"))
     A = -torch.exp(_on(cuda, normal((4,), 8, 0.5), "float32"))
+    assert ssd_module.variant(x, Bm, Cm, 32) == "tiled"
     y, s = ssd_scan(x, dt, A, Bm, Cm, chunk=32)
     want_y, want_s = ssd_scan_ref(x.contiguous(), dt, A, Bm.contiguous(),
                                   Cm.contiguous())
@@ -295,27 +326,67 @@ def test_ssd_scan_kernel_takes_the_models_strided_slices(cuda):
     torch.testing.assert_close(s, want_s, **STATE_TOL)
 
 
+# (B, S, H, K, V, chunk): L off the tensor cores' 16, K off 16 and V off the
+# slab of 32 (zero-padded tiles) included
 @pytest.mark.parametrize("B,S,H,K,V,chunk", [
     (1, 32, 1, 8, 8, 8), (2, 64, 3, 16, 16, 16), (1, 96, 2, 32, 16, 32),
-    (4, 128, 40, 64, 64, 32), (2, 64, 3, 64, 32, 32)])
+    (4, 128, 40, 64, 64, 32), (2, 64, 3, 64, 32, 32), (2, 72, 3, 64, 48, 24),
+    (1, 64, 2, 40, 80, 16)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("logw_case", ["some_below", "at_clip",
+                                       "all_below"])
+@pytest.mark.parametrize("kernel", [None, "old"])
 def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, K, V, chunk, dtype,
-                                         init):
+                                         init, logw_case, kernel):
     r = _on(cuda, normal((B, S, H, K), 0), dtype)
     k = _on(cuda, normal((B, S, H, K), 1), dtype)
     v = _on(cuda, normal((B, S, H, V), 2), dtype)
     logw = -torch.nn.functional.softplus(
         _on(cuda, normal((B, S, H, K), 3), "float32")) - 0.5
-    logw[:, ::7] = -20.0                     # below the clip at -6
+    if logw_case == "some_below":
+        logw[:, ::7] = -20.0                 # below the clip at -6
+    else:                                    # every cum at -6 L
+        logw.fill_(-6.0 if logw_case == "at_clip" else -40.0)
     u = _on(cuda, normal((H, K), 4, 0.1), "float32")
     s0 = _on(cuda, normal((B, H, K, V), 5), "float32") if init else None
+    assert rwkv_module.variant(r, k, v, logw, chunk) == "tiled"
     before = rwkv6_scan.launches
-    o, s = rwkv6_scan(r, k, v, logw, u, chunk=chunk, initial_state=s0)
+    o, s = rwkv6_scan(r, k, v, logw, u, chunk=chunk, initial_state=s0,
+                      kernel=kernel)
     assert rwkv6_scan.launches == before + 1 and o.dtype == r.dtype
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
     want_o, want_s = rwkv6_scan_ref(r, k, v, logw, u, s0)
     torch.testing.assert_close(o.float(), want_o.float(), **SCAN_TOL[dtype])
     torch.testing.assert_close(s, want_s, **STATE_TOL)
+
+
+@pytest.mark.parametrize("kernel", ["ssd_scan", "rwkv6_scan"])
+def test_scans_off_the_tiled_grid_take_the_old_kernel(cuda, kernel):
+    # views off the 16-byte grid: the old kernel, held alike
+    if kernel == "ssd_scan":
+        x = _at_offset(_on(cuda, normal((2, 64, 3, 16), 0), "bfloat16"), 1)
+        dt = torch.nn.functional.softplus(_on(cuda, normal((2, 64, 3), 1),
+                                              "float32"))
+        A = -torch.exp(_on(cuda, normal((3,), 2, 0.5), "float32"))
+        Bm, Cm = (_on(cuda, normal((2, 64, 8), i), "bfloat16")
+                  for i in (3, 4))
+        assert ssd_module.variant(x, Bm, Cm, 16) == "old"
+        got = ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+        want = ssd_scan_ref(x, dt, A, Bm, Cm)
+    else:
+        r = _at_offset(_on(cuda, normal((2, 64, 3, 16), 0), "bfloat16"), 1)
+        k, v = (_on(cuda, normal((2, 64, 3, 16), i), "bfloat16")
+                for i in (1, 2))
+        logw = -torch.nn.functional.softplus(
+            _on(cuda, normal((2, 64, 3, 16), 3), "float32")) - 0.5
+        u = _on(cuda, normal((3, 16), 4, 0.1), "float32")
+        assert rwkv_module.variant(r, k, v, logw, 16) == "old"
+        got = rwkv6_scan(r, k, v, logw, u, chunk=16)
+        want = rwkv6_scan_ref(r, k, v, logw, u)
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               **SCAN_TOL["bfloat16"])
+    torch.testing.assert_close(got[1], want[1], **STATE_TOL)
 
 
 # the serving shapes, and every C tile edge of the tensor-core kernel with
@@ -364,6 +435,8 @@ def test_scan_and_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         rwkv6_scan(r.transpose(1, 2).contiguous().transpose(1, 2), r, r, r,
                    u)
+    with pytest.raises(TypeError):           # logw is read as float32
+        rwkv6_scan(r, r, r, r.bfloat16(), u)
     with pytest.raises(TypeError):
         moe_gemm(torch.ones(2, 4, 8, device=cuda),
                  torch.ones(2, 8, 4, device=cuda).bfloat16())
@@ -373,7 +446,8 @@ def test_scan_and_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.parametrize("kernel", ["rmsnorm", "moe_gemm", "flash_attention",
-                                    "decode_attention"])
+                                    "decode_attention", "ssd_scan",
+                                    "rwkv6_scan"])
 def test_kernel_captured_in_a_cuda_graph_replays_as_the_eager_call(cuda,
                                                                    kernel):
     if kernel == "rmsnorm":
@@ -391,12 +465,34 @@ def test_kernel_captured_in_a_cuda_graph_replays_as_the_eager_call(cuda,
         fn, launches = (lambda: flash_attention_fwd(x, y, z)), \
             flash_attention_fwd
         assert flash_module.variant(x, y, z) == "mma"
-    else:   # a cluster launch
+    elif kernel == "decode_attention":   # a cluster launch
         x = _on(cuda, normal((4, 24, 128), 20), "bfloat16")
         y, z = _kv(cuda, "model", 4, 8, 168, 128, "bfloat16", 21)
         fn, launches = (lambda: decode_attention_fwd(x, y, z, 144)), \
             decode_attention_fwd
         assert decode_module.variant(x, y, z) == "split"
+    elif kernel == "ssd_scan":        # zamba2's prefill, state in and out
+        x = _on(cuda, normal((4, 128, 80, 64), 20), "bfloat16")
+        y, z = (_on(cuda, normal((4, 128, 64), i), "bfloat16")
+                for i in (21, 23))
+        dt = torch.nn.functional.softplus(_on(cuda, normal((4, 128, 80), 24),
+                                              "float32"))
+        A = -torch.exp(_on(cuda, normal((80,), 25, 0.5), "float32"))
+        s0 = _on(cuda, normal((4, 80, 64, 64), 26), "float32")
+        fn, launches = (lambda: ssd_scan(x, dt, A, y, z, initial_state=s0)), \
+            ssd_scan
+        assert ssd_module.variant(x, y, z) == "tiled"
+    else:                             # rwkv6's prefill, state in and out
+        x = _on(cuda, normal((4, 128, 40, 64), 20), "bfloat16")
+        y, z = (_on(cuda, normal((4, 128, 40, 64), i), "bfloat16")
+                for i in (21, 23))
+        logw = -torch.nn.functional.softplus(
+            _on(cuda, normal((4, 128, 40, 64), 24), "float32")) - 0.5
+        u = _on(cuda, normal((40, 64), 25, 0.1), "float32")
+        s0 = _on(cuda, normal((4, 40, 64, 64), 26), "float32")
+        fn, launches = (lambda: rwkv6_scan(x, y, z, logw, u,
+                                           initial_state=s0)), rwkv6_scan
+        assert rwkv_module.variant(x, y, z, logw) == "tiled"
     side = torch.cuda.Stream()       # warm up off the capture, as
     side.wait_stream(torch.cuda.current_stream())   # torch.cuda.graphs asks
     with torch.cuda.stream(side):
@@ -412,7 +508,10 @@ def test_kernel_captured_in_a_cuda_graph_replays_as_the_eager_call(cuda,
     graph.replay()
     torch.cuda.synchronize()
     assert launches.launches == before + 1    # the eager call, not replays
-    assert torch.equal(got, want)
+    if isinstance(got, tuple):                # the scans' output and state
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    else:
+        assert torch.equal(got, want)
 
 
 _KERNELS = {"rmsnorm": rmsnorm_fwd, "flash_attention": flash_attention_fwd,

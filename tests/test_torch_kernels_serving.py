@@ -5,9 +5,11 @@ its Pallas kernels in interpret mode (`repro.kernels.ops`), on the shapes of
 2e-2: both sides compute in float32 and round the output once, so the
 bfloat16 tolerance covers one rounding of the output).
 
-Flash attention is swept at S = T only: for S != T the reference's kernel
-and oracle align the causal mask differently (ROADMAP queue 3, item 2), and
-the port's wrapper refuses causal inputs there.  The last tests hold the
+Flash attention is swept against the reference's oracle at S = T only: for
+S != T the reference's kernel and oracle align the causal mask differently
+(ROADMAP queue 3, item 2).  There the port aligns it top-left, as the
+reference's kernel and model layer do, and is held against both.  The last
+tests hold the
 wrappers' grouped-KV (GQA) form, on the model's strided layouts, against the
 JAX model layers each kernel replaces on the serving path; there the
 bfloat16 tolerance also covers the one rounding (of p, or of the norm
@@ -93,13 +95,24 @@ def test_rmsnorm_plain_matches_reference(shape, br, dtype):
            dtype)
 
 
-def test_causal_flash_refuses_s_not_t():
-    q = torch.zeros(1, 2, 8, 16)
-    with pytest.raises(ValueError, match="S == T"):
-        ops.flash_attention(q, q[:, :, :4], q[:, :, :4])
-    # without the mask the alignment question does not arise
-    assert ops.flash_attention(q, q[:, :, :4], q[:, :, :4],
-                               causal=False).shape == q.shape
+@pytest.mark.parametrize("S,T,bq,bk", [(32, 64, 16, 16), (64, 32, 16, 16),
+                                       (64, 128, 32, 64), (128, 64, 64, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_flash_s_not_t_matches_the_kernel_and_blocked_attention(
+        S, T, bq, bk, dtype):
+    # top-left: query i sees keys j <= i, so for S > T the rows i >= T see
+    # every key; S and T are multiples of the Pallas kernel's blocks
+    jq, q = _pair(normal((2, 3, S, 32), 0), dtype)
+    jk, k = _pair(normal((2, 3, T, 32), 1), dtype)
+    jv, v = _pair(normal((2, 3, T, 32), 2), dtype)
+    got = ops.flash_attention(q, k, v, causal=True, block_q=bq, block_kv=bk)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _check(got, ref_ops.flash_attention(jq, jk, jv, causal=True, block_q=bq,
+                                        block_kv=bk, interpret=True), dtype)
+    want = ref_layers.blocked_attention(
+        *(a.transpose(0, 2, 1, 3) for a in (jq, jk, jv)), causal=True,
+        block_q=bq, block_kv=bk)
+    _check(got.transpose(1, 2), want, dtype)
 
 
 # ---- the strided GQA form, against the model layers it replaces ----------

@@ -13,6 +13,8 @@ from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gemm as moe
 from repro_torch.kernels import rmsnorm as rms
+from repro_torch.kernels import rwkv6_scan as rwkv
+from repro_torch.kernels import ssd_scan as ssd
 
 WRAPPERS = ["wavefront", "rmsnorm", "decode_attention", "flash_attention",
             "ssd_scan", "rwkv6_scan", "moe_gemm"]
@@ -115,6 +117,173 @@ def test_decode_attention_other_calls_take_the_head_kernel(case):
     if case == "f32-odd-stride":       # T rows 130 floats apart
         v = torch.zeros(4, 8, 168, 130, dtype=dtype)[..., :128]
     assert dec.variant(q, k, v) == "head"
+
+
+def _ssd_operands(B, S, H, P, N, dtype=torch.bfloat16, x_offset=0):
+    """x, B and C as the model passes them: slices of one (B, S, H P + 2N)
+    conv output, x `x_offset` elements further into its storage."""
+    conv = _at_offset((B, S, H * P + 2 * N + x_offset), dtype, 0)
+    x = conv[..., x_offset:x_offset + H * P].reshape(B, S, H, P)
+    return x, conv[..., H * P:H * P + N], conv[..., H * P + N:H * P + 2 * N]
+
+
+# (B, S, H, P, N, chunk) of zamba2-2.7b's prefill and of the card tests'
+# grid, each with the kernel its bfloat16 call runs: L, P and N off the
+# tensor cores' 16 and P off the slab of 32 pad with zeros on the tiled route
+SSD_SHAPES = [((4, 128, 80, 64, 64, 64), "tiled"),
+              ((2, 64, 5, 64, 64, 64), "tiled"),
+              ((1, 128, 2, 32, 16, 32), "tiled"),
+              ((2, 64, 3, 16, 8, 16), "tiled"),
+              ((1, 48, 2, 8, 8, 8), "tiled"),
+              ((2, 72, 3, 48, 24, 24), "tiled"),
+              ((1, 80, 2, 80, 40, 40), "tiled"),
+              ((1, 32, 1, 8, 4, 8), "old")]       # N = 4: 8 bytes a row
+
+# Shared memory of one block of each tiled kernel, by the layouts of
+# `csrc/ssd_scan.cu:TiledSmem` and `csrc/rwkv6_scan.cu:TiledSmem`, whatever
+# the shape; the sources hold their own layouts to the same limits by
+# static_assert at build time, and these mirrors to the sources' constants
+# by `test_tiled_scan_constants_agree_with_the_sources`.
+SLAB = 32              # both kernels' kSlab
+
+
+def ssd_tiled_smem_bytes(itemsize: int) -> int:
+    """Two stages of the x slab, B and C (rows padded by 16 bytes) and dt;
+    then, in float32, x dt, G^T and the state slab; in bfloat16 (x rows
+    padded by 16 bytes too), x dt exp(cum_L - cum) and the state slab, each
+    as bf16 hi and lo parts; and three float vectors of L."""
+    max_l = max_n = ssd.MAX_L
+    if itemsize == 4:
+        ld, xl = max_n + 4, SLAB
+        rest = 4 * (max_l * SLAB + max_l * (max_l + 4) + SLAB * (max_n + 4))
+    else:
+        ld, xl = max_n + 8, SLAB + 8
+        rest = 2 * (2 * max_l * xl + 2 * SLAB * ld)
+    stage = (max_l * xl + 2 * max_l * ld) * itemsize + 4 * max_l
+    return 2 * stage + rest + 4 * 3 * max_l
+
+
+def rwkv_tiled_smem_bytes(itemsize: int) -> int:
+    """r and k (rows padded by 16 bytes), float32 logw (its cumsum), two
+    stages of the v slab, the float32 r and k factors, 2^cum_L and the
+    bonus; then, in float32, k 2^(cum_L - cum), r 2^cum_ex, A^T and the
+    state slab; in bfloat16 (v rows padded by 16 bytes), r 2^cum_ex, A and
+    the state slab as bf16 hi and lo parts (k 2^(cum_L - cum) reuses the
+    factors' room)."""
+    max_l, max_k = rwkv.MAX_L, rwkv.MAX_K
+    ld, n_sub = max_k + 4, max_l // rwkv.SUB
+    kf_rows = 4 * n_sub * (n_sub - 1)
+    ld_t = max_k + 16 // itemsize
+    vl = SLAB if itemsize == 4 else SLAB + 8
+    shared = 2 * max_l * ld_t * itemsize + 4 * max_l * ld + \
+        2 * max_l * vl * itemsize + 4 * (max_l * ld + kf_rows * ld + max_k +
+                                         max_l)
+    if itemsize == 4:
+        return shared + 4 * (2 * max_l * ld + max_l * (max_l + 4) +
+                             max_k * (SLAB + 4))
+    return shared + 2 * 2 * (max_l * ld_t + max_l * (max_l + 8) + max_k * vl)
+
+
+@pytest.mark.parametrize("shape,route", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_routes_by_shape_and_alignment(shape, route, dtype):
+    B, S, H, P, N, chunk = shape
+    x, Bm, Cm = _ssd_operands(B, S, H, P, N, dtype)
+    if dtype == torch.float32:
+        route = "tiled"                # N = 4 floats are 16 bytes
+    assert ssd.variant(x, Bm, Cm, chunk) == route
+    smem = ssd_tiled_smem_bytes(x.element_size()) \
+        if route == "tiled" else ssd.smem_bytes(P, N, min(chunk, S))
+    assert smem <= build.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("case", ["chunk-128", "n-96", "p-ragged", "x-misaligned",
+                                  "b-misaligned", "odd-stride"])
+def test_ssd_scan_off_grid_calls_take_the_old_kernel(case):
+    B, S, H, P, N = 2, 128, 4, 64, 64
+    chunk = 128 if case == "chunk-128" else 64
+    N = 96 if case == "n-96" else N
+    P = 60 if case == "p-ragged" else P
+    x, Bm, Cm = _ssd_operands(B, S, H, P, N, x_offset=int(case == "x-misaligned"))
+    if case == "b-misaligned":
+        Bm = _at_offset((B, S, N), torch.bfloat16, 1)
+    if case == "odd-stride":       # rows of C 65 elements apart
+        Cm = torch.zeros(B, S, N + 1, dtype=torch.bfloat16)[..., :N]
+    assert ssd.variant(x, Bm, Cm, chunk) == "old"
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_ssd_scan_tiled_blocks_fit_the_sm(itemsize):
+    # a block's shared memory fits the limit whatever the shape; in bf16
+    # three blocks share an SM (228 KB, 1 KB of each block reserved)
+    smem = ssd_tiled_smem_bytes(itemsize)
+    assert smem <= build.SMEM_LIMIT
+    if itemsize == 2:
+        assert 3 * (smem + 1024) <= 228 * 1024
+
+
+def _rwkv_operands(B, S, H, K, V, dtype=torch.bfloat16, offset=0):
+    r, k = (_at_offset((B, S, H, K), dtype, offset) for _ in range(2))
+    v = _at_offset((B, S, H, V), dtype, 0)
+    return r, k, v, torch.zeros(B, S, H, K)
+
+
+# (B, S, H, K, V, chunk) of rwkv6-3b's prefill and of the card tests' grid:
+# L off the tensor cores' 16, K off 16 and V off the slab of 32 included
+RWKV_SHAPES = [(4, 128, 40, 64, 64, 32), (2, 64, 3, 64, 32, 32),
+               (1, 96, 2, 32, 16, 32), (2, 64, 3, 16, 16, 16),
+               (1, 32, 1, 8, 8, 8), (2, 72, 3, 64, 48, 24),
+               (1, 64, 2, 40, 80, 16)]
+
+
+@pytest.mark.parametrize("shape", RWKV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_serving_and_grid_shapes_take_the_tiled_kernel(shape,
+                                                                 dtype):
+    B, S, H, K, V, chunk = shape
+    assert rwkv.variant(*_rwkv_operands(B, S, H, K, V, dtype), chunk) == \
+        "tiled"
+    assert rwkv_tiled_smem_bytes(torch.tensor([], dtype=dtype).element_size()) \
+        <= build.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("case", ["chunk-64", "chunk-20", "k-96", "v-ragged",
+                                  "r-misaligned", "logw-misaligned"])
+def test_rwkv6_scan_off_grid_calls_take_the_old_kernel(case):
+    B, S, H, K, V = 2, 128, 4, 64, 64
+    chunk = {"chunk-64": 64, "chunk-20": 20}.get(case, 32)
+    K = 96 if case == "k-96" else K
+    V = 60 if case == "v-ragged" else V
+    S = 120 if case == "chunk-20" else S
+    r, k, v, logw = _rwkv_operands(B, S, H, K, V,
+                                   offset=int(case == "r-misaligned"))
+    if case == "logw-misaligned":
+        logw = _at_offset((B, S, H, K), torch.float32, 1)
+    assert rwkv.variant(r, k, v, logw, chunk) == "old"
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_rwkv6_scan_tiled_blocks_fit_the_sm(itemsize):
+    smem = rwkv_tiled_smem_bytes(itemsize)
+    assert smem <= build.SMEM_LIMIT
+    if itemsize == 2:
+        assert 3 * (smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("name,mirror", [("ssd_scan", ssd), ("rwkv6_scan", rwkv)])
+def test_tiled_scan_constants_agree_with_the_sources(name, mirror):
+    # the wrappers' routing and this file's shared memory mirrors use the
+    # kernel's constants
+    src = (build.CSRC / f"{name}.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k(?:MaxL|MaxN|MaxK|Sub|Slab)) = (\d+);", src)}
+    assert consts["kMaxL"] == mirror.MAX_L
+    assert consts.get("kMaxN", consts.get("kMaxK")) == \
+        getattr(mirror, "MAX_N", getattr(mirror, "MAX_K", None))
+    assert consts["kSlab"] == SLAB
+    if name == "rwkv6_scan":
+        assert consts["kSub"] == mirror.SUB
+        assert "kLogwMin = -6.0f" in src and mirror.LOGW_MIN == -6.0
 
 
 @pytest.mark.parametrize("name", ["moe_gemm", "flash_attention"])
