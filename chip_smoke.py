@@ -23,10 +23,15 @@ non-zero and prints no `ok` line:
              kernels (the tiled one and the old one), rwkv6 with
              logw at and far below the clip, and at the serving shapes the
              tiled kernel's times beside the old kernel's;
-4. fitness — BatchedFitness on the card, kernel path against the plain path
-             and against the CPU, launch counts, genomes/s, kernel times;
+4. fitness — BatchedFitness on the card, per cell both kernel routes in
+             turns (fused: one wavefront_scan launch a chunk; step: a
+             serialize_prefix launch a queue update), each against the
+             plain path and the CPU, with launch counts, genomes/s and a
+             profile; then wavefront_scan alone at the cell's chunk against
+             its plain version, timed beside the step route's scan;
 5. explore — Stream's explore(prefilter=True) on the card, the DSE main
-             path, with every launch count set to 0 just before it;
+             path, with every launch count set to 0 just before it: one
+             wavefront_scan launch a prefilter chunk, no other kernel;
 6. serve   — llama3.2-3b, zamba2-2.7b, rwkv6-3b and deepseek-moe-16b,
              one after another, each at full width (seeded random weights
              on the card) through ServeEngine.serve, a serving main path
@@ -255,20 +260,162 @@ def call_device_ms(fn, iters: int = 100) -> float:
 
 def profile_scores(bf, pop) -> dict:
     """Where one scores() call spends its time on the card: wall time, the
-    device's busy time (sum of kernel times) and its idle share, and the
-    kernels with the most device time."""
+    device's busy time (sum of kernel times) and its idle share, launches,
+    the two wavefront kernels' device time and launches, and the kernels
+    with the most device time."""
     device_times(lambda: bf.scores(pop))        # the profiler's own warm-up
     wall_ms, rows = device_times(lambda: bf.scores(pop))
     kernels = [r for r in rows if not r[1].startswith("aten::")]
     busy_ms = sum(r[0] for r in kernels) / 1e3
-    ser = [r for r in kernels if "serialize_prefix" in r[1]]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1 - busy_ms / wall_ms if kernels else None,
-            "kernel_launches": sum(r[2] for r in kernels),
-            "serialize_device_ms": sum(r[0] for r in ser) / 1e3,
-            "serialize_count": sum(r[2] for r in ser),
-            "top": [{"name": k[:90], "device_ms": us / 1e3, "count": c}
-                    for us, k, c in kernels[:8]]}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms if kernels else None,
+           "kernel_launches": sum(r[2] for r in kernels)}
+    for key, name in (("scan", "wavefront_scan_kernel"),
+                      ("serialize", "serialize_prefix_kernel")):
+        hits = [r for r in kernels if name in r[1]]
+        out[f"{key}_device_ms"] = sum(r[0] for r in hits) / 1e3
+        out[f"{key}_count"] = sum(r[2] for r in hits)
+    out["top"] = [{"name": k[:90], "device_ms": us / 1e3, "count": c}
+                  for us, k, c in kernels[:8]]
+    return out
+
+
+def scan_work(packed: dict, outs, shape) -> tuple[float, float]:
+    """(bytes, float32 operations) of one `wavefront_scan` launch: every
+    input the kernel reads (the packed genome-major tensors and the static
+    tables) once and every output once; per genome and wavefront about 6
+    operations per slot and queue (cores and channels), 2 per predecessor
+    slot, 4 per slot for its ready time and 10 per core for the spill
+    model."""
+    P, L, W, D, C, H = shape
+    n_bytes = sum(t.numel() * t.element_size() for t in packed.values()) \
+        + sum(t.numel() * t.element_size() for t in outs)
+    n_ops = P * L * (6 * W * (C + H) + 2 * W * D + 4 * W + 10 * C)
+    return n_bytes, n_ops
+
+
+def fitness_phase(dev, session, w, acc) -> dict:
+    """BatchedFitness on the card for one cell (256 genomes): the fused
+    route (one `wavefront_scan` launch a chunk) and the step route (a
+    `serialize_prefix` launch a queue update) in turns (fused, step, step,
+    fused), each held against the plain loop on the card and against the
+    CPU, with its launches, genomes/s and profile; then `wavefront_scan`
+    alone at the cell's chunk against its plain version, timed beside the
+    step route's scan on the same inputs."""
+    import torch
+    from repro_torch.core.allocator import feasible_cores_per_layer
+    from repro_torch.core.vectorized import BatchedFitness, rank_correlation
+    from repro_torch.kernels.ref import (population_last,
+                                         serialize_prefix_ref,
+                                         wavefront_scan_ref)
+    from repro_torch.kernels.wavefront import (pack, serialize_prefix,
+                                               wavefront_scan)
+    engine = session.engine(w, acc, GRAN)
+    feas = feasible_cores_per_layer(w, acc)
+    grng = np.random.default_rng(1)
+    pop = np.stack([[f[grng.integers(len(f))] for f in feas]
+                    for _ in range(256)])
+    bfs = {"fused": BatchedFitness(engine, device=dev),
+           "step": BatchedFitness(engine, device=dev, kernel="step")}
+    plain = BatchedFitness(engine, device=dev, use_kernel=False)
+    assert bfs["fused"].contention == "serialize", bfs["fused"].contention
+    assert (bfs["fused"].route, bfs["step"].route) == ("fused", "step")
+    kern = bfs["fused"]
+    chunk = kern.chunk_size(len(pop))
+    n_chunks = -(-len(pop) // chunk)
+    per_chunk = kern.n_wavefronts * (2 if kern.comm else 1)
+    want = {"fused": {"wavefront_scan": n_chunks, "serialize_prefix": 0},
+            "step": {"wavefront_scan": 0,
+                     "serialize_prefix": per_chunk * n_chunks}}
+    for bf in (*bfs.values(), plain):
+        bf.scores(pop)                                 # warm-up
+    rates = {"fused": [], "step": []}
+    scores = {}
+    for route in ("fused", "step", "step", "fused"):
+        wavefront_scan.launches = serialize_prefix.launches = 0
+        t0 = time.perf_counter()
+        s = bfs[route].scores(pop)
+        rates[route].append(len(pop) / (time.perf_counter() - t0))
+        got = {"wavefront_scan": wavefront_scan.launches,
+               "serialize_prefix": serialize_prefix.launches}
+        assert got == want[route], (route, got, want[route])
+        assert np.array_equal(scores.setdefault(route, s), s), route
+    t0 = time.perf_counter()
+    s_p = plain.scores(pop)
+    t_p = time.perf_counter() - t0
+    s_c = BatchedFitness(engine, device="cpu",
+                         contention="serialize").scores(pop[:16])
+    for route, s in scores.items():
+        np.testing.assert_allclose(s, s_p, rtol=RTOL)
+        np.testing.assert_allclose(s[:16], s_c, rtol=RTOL)
+        assert np.all(np.isfinite(s)) and np.all(s > 0), route
+    t0 = time.perf_counter()
+    exact = engine.evaluate_population(pop, "latency")
+    t_e = time.perf_counter() - t0
+
+    # the kernel alone at the chunk's shapes, against its plain version and
+    # beside the step route's scan on the same inputs
+    g = torch.as_tensor(pop[:chunk], device=dev)
+    xs, st, kw = kern.scan_args(g)
+
+    def fused():
+        return wavefront_scan(g, xs, st, **kw)
+
+    def ref():
+        return wavefront_scan_ref(
+            g, xs, st, serialize=population_last(serialize_prefix_ref), **kw)
+
+    def step():
+        return wavefront_scan_ref(
+            g, xs, st, serialize=population_last(serialize_prefix), **kw)
+
+    outs, want_outs, step_outs = fused(), ref(), step()
+    torch.cuda.synchronize()
+    max_abs = 0.0
+    bit_equal = True
+    for got_t, want_t, step_t in zip(outs, want_outs, step_outs):
+        torch.testing.assert_close(got_t, want_t, rtol=RTOL, atol=0.0)
+        torch.testing.assert_close(step_t, want_t, rtol=RTOL, atol=0.0)
+        max_abs = max(max_abs, float((got_t - want_t).abs().max()))
+        bit_equal = bit_equal and torch.equal(got_t, want_t)
+    shape = (chunk, kern.n_wavefronts, kern.width, kern.dmax, kern.n_cores,
+             kern.n_chan)
+    b = bound(*scan_work(pack(g, xs, st), outs, shape), F32_OPS_PER_S)
+    _, step_rows = device_times(step)
+    step_kernels = [r for r in step_rows if not r[1].startswith("aten::")]
+    scan = {"shape": dict(zip(("P", "L", "W", "D", "C", "H"), shape)),
+            "max_abs_err": max_abs, "bit_equal_plain": bit_equal,
+            "ms": cuda_ms(fused, iters=50, windows=5),
+            "device_ms": kernel_device_ms(fused, "wavefront_scan_kernel",
+                                          iters=20),
+            "plain_ms": cuda_ms(ref, iters=3, warmup=1),
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "old": {"route": "step", "ms": cuda_ms(step, iters=3, warmup=1),
+                    "device_ms": sum(r[0] for r in step_kernels) / 1e3,
+                    "serialize_device_ms": sum(
+                        r[0] for r in step_kernels
+                        if "serialize_prefix" in r[1]) / 1e3,
+                    "kernel_launches": sum(r[2] for r in step_kernels)}}
+    return {"phase": "fitness", "workload": w.name, "arch": acc.name,
+            "genomes": len(pop), "chunk": chunk, "cns": engine.graph.n,
+            "wavefronts": kern.n_wavefronts, "width": kern.width,
+            "dmax": kern.dmax, "cores": kern.n_cores,
+            "channels": kern.n_chan, "launches": want,
+            "genomes_per_s": rates,
+            "plain_genomes_per_s": len(pop) / t_p,
+            "exact_genomes_per_s": len(pop) / t_e,
+            "max_rel_vs_plain": {r: float(np.max(np.abs(s - s_p)
+                                                 / np.abs(s_p)))
+                                 for r, s in scores.items()},
+            "max_rel_vs_cpu": {r: float(np.max(np.abs(s[:16] - s_c)
+                                               / np.abs(s_c)))
+                               for r, s in scores.items()},
+            "rank_corr_latency": rank_correlation(scores["fused"][:, 0],
+                                                  exact[:, 0]),
+            "rank_corr_energy": rank_correlation(scores["fused"][:, 1],
+                                                 exact[:, 1]),
+            "profile": {r: profile_scores(bf, pop) for r, bf in bfs.items()},
+            "scan": scan}
 
 
 # ---- the serving kernels ---------------------------------------------------
@@ -1113,8 +1260,7 @@ def main() -> int:
     from repro_torch.api.session import default_session
     from repro_torch.configs.paper_workloads import resnet18, squeezenet
     from repro_torch.core import explore
-    from repro_torch.core.allocator import feasible_cores_per_layer
-    from repro_torch.core.vectorized import BatchedFitness, rank_correlation
+    from repro_torch.core.vectorized import BatchedFitness
     from repro_torch.hw.catalog import mc_hetero, mc_hom_tpu_chip4
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import decode_attention_fwd
@@ -1124,7 +1270,8 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import rmsnorm_fwd
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
-    from repro_torch.kernels.wavefront import serialize_prefix
+    from repro_torch.kernels.wavefront import (serialize_prefix,
+                                               wavefront_scan)
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -1196,75 +1343,47 @@ def main() -> int:
             line["state_tolerance"] = res["state_tolerance"]
         emit(line)
 
-    # ---- batched fitness on the card --------------------------------------
+    # ---- batched fitness on the card, both routes -------------------------
     session = default_session()
-    for w, acc in ((resnet18(), mc_hetero()),
-                   (squeezenet(), mc_hom_tpu_chip4())):
-        engine = session.engine(w, acc, GRAN)
-        feas = feasible_cores_per_layer(w, acc)
-        grng = np.random.default_rng(1)
-        pop = np.stack([[f[grng.integers(len(f))] for f in feas]
-                        for _ in range(256)])
-        kern = BatchedFitness(engine, device=dev)
-        plain = BatchedFitness(engine, device=dev, use_kernel=False)
-        assert kern.contention == "serialize" and kern.use_kernel
-        per_chunk = kern.n_wavefronts * (2 if kern.comm else 1)
-        kern.scores(pop)                                  # warm-up
-        plain.scores(pop)
-        serialize_prefix.launches = 0
-        t0 = time.perf_counter()
-        s_k = kern.scores(pop)
-        t_k = time.perf_counter() - t0
-        launches = serialize_prefix.launches
-        n_chunks = -(-len(pop) // kern.chunk_size(len(pop)))
-        assert launches == per_chunk * n_chunks, (launches, per_chunk)
-        t0 = time.perf_counter()
-        s_p = plain.scores(pop)
-        t_p = time.perf_counter() - t0
-        np.testing.assert_allclose(s_k, s_p, rtol=RTOL)
-        cpu = BatchedFitness(engine, device="cpu", contention="serialize")
-        s_c = cpu.scores(pop[:16])
-        np.testing.assert_allclose(s_k[:16], s_c, rtol=RTOL)
-        assert np.all(np.isfinite(s_k)) and np.all(s_k > 0)
-        t0 = time.perf_counter()
-        exact = engine.evaluate_population(pop, "latency")
-        t_e = time.perf_counter() - t0
-        prof = profile_scores(kern, pop)
-        emit({"phase": "fitness", "workload": w.name, "arch": acc.name,
-              "genomes": len(pop), "cns": engine.graph.n,
-              "wavefronts": kern.n_wavefronts, "width": kern.width,
-              "cores": kern.n_cores, "channels": kern.n_chan,
-              "launches": launches, "expected_launches": per_chunk * n_chunks,
-              "kernel_genomes_per_s": len(pop) / t_k,
-              "plain_genomes_per_s": len(pop) / t_p,
-              "exact_genomes_per_s": len(pop) / t_e,
-              "max_rel_kernel_vs_plain": float(np.max(np.abs(s_k - s_p)
-                                                      / np.abs(s_p))),
-              "rank_corr_latency": rank_correlation(s_k[:, 0], exact[:, 0]),
-              "rank_corr_energy": rank_correlation(s_k[:, 1], exact[:, 1]),
-              "profile": prof})
+    fitness = [fitness_phase(dev, session, w, acc)
+               for w, acc in ((resnet18(), mc_hetero()),
+                              (squeezenet(), mc_hom_tpu_chip4()))]
+    for line in fitness:
+        emit(line)
 
     # ---- the main path: explore(prefilter=True) on the card ---------------
     w, acc = resnet18(), mc_hetero()
     kw = dict(granularity=GRAN, pop_size=24, generations=16, seed=0)
-    counters = {"serialize_prefix": serialize_prefix,
+    counters = {"wavefront_scan": wavefront_scan,
+                "serialize_prefix": serialize_prefix,
                 "rmsnorm": rmsnorm_fwd,
                 "decode_attention": decode_attention_fwd,
                 "flash_attention": flash_attention_fwd,
                 "ssd_scan": ssd_scan, "rwkv6_scan": rwkv6_scan,
                 "moe_gemm": moe_gemm}
-    for fn in counters.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = explore(w, acc, prefilter=True, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = serialize_prefix.launches
+    chunks = [0]            # prefilter chunks scored, each one scan launch
+    score = BatchedFitness._score
+
+    def counted(self, genomes):
+        chunks[0] += 1
+        return score(self, genomes)
+
+    BatchedFitness._score = counted
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = explore(w, acc, prefilter=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        BatchedFitness._score = score
+    launches = wavefront_scan.launches
     assert res.ga.prefilter_screened > 0, res.ga
-    assert launches > 0, "explore never launched the serialize kernel"
+    assert launches == chunks[0] > 0, (launches, chunks[0])
     assert all(fn.launches == 0 for name, fn in counters.items()
-               if name != "serialize_prefix")
+               if name != "wavefront_scan")
     final = session.engine(w, acc, GRAN).schedule(res.allocation, "latency")
     assert (res.latency_cc, res.energy_pj) == (final.latency_cc,
                                               final.energy_pj)
@@ -1275,6 +1394,8 @@ def main() -> int:
     emit({"phase": "explore", "workload": w.name, "arch": acc.name,
           "granularity": list(GRAN), "wall_s": wall,
           "unfiltered_wall_s": wall_base, "launches": launches,
+          "prefilter_chunks": chunks[0],
+          "serialize_prefix_launches": serialize_prefix.launches,
           "prefilter_screened": res.ga.prefilter_screened,
           "prefilter_pruned": res.ga.prefilter_pruned,
           "evaluations": res.ga.evaluations,
@@ -1290,11 +1411,31 @@ def main() -> int:
         emit(served[arch])
 
     t = times[TIMED_SHAPES[0]]
+    sc = fitness[0]["scan"]
     rows = [{
-        "name": "serialize_prefix", "route": "cuda",
+        "name": "wavefront_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wavefront.cu",
         "replaces": "src/repro/kernels/wavefront.py:37",
         "paths": ["fitness", "explore"], "launches": launches,
+        "launches_by_path": {
+            "explore": launches,
+            **{f"fitness {f['workload']} x {f['arch']}":
+               f["launches"]["fused"]["wavefront_scan"] for f in fitness}},
+        "max_abs_err": max(f["scan"]["max_abs_err"] for f in fitness),
+        "ms": sc["ms"], "device_ms": sc["device_ms"],
+        "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
+        "bound_by": sc["bound_by"], "library_ms": None,
+        "library_device_ms": None, "shape": sc["shape"],
+        "old": sc["old"],
+        "by_cell": {f"{f['workload']} x {f['arch']}":
+                    {k: f["scan"][k] for k in
+                     ("device_ms", "ms", "bound_ms", "old")}
+                    for f in fitness}}, {
+        "name": "serialize_prefix", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wavefront.cu",
+        "replaces": "src/repro/kernels/wavefront.py:37",
+        "paths": ["fitness step route"],
+        "launches": fitness[0]["launches"]["step"]["serialize_prefix"],
         "max_abs_err": max_abs,
         "ms": t["ms"], "device_ms": t["device_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

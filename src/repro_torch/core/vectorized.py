@@ -7,16 +7,20 @@ code on one device (the port of the JAX package's `repro/core/vectorized.py`):
 
 * the CSR `CNGraph` is *wavefront-levelized* (CNs grouped by longest-path
   depth, members in CN-id order — a topological order by construction);
-* one step of a Python loop per wavefront computes every member's ready time
-  from predecessor finishes, channel transfers, DRAM weight/input fetches
-  and fused-stack barriers, all batched over the population axis, which is
-  the last axis of every tensor (`(L, W, P)`);
+* everything that depends on the genome but not on time is hoisted into
+  per-wavefront tensors, population last (`(L, W, P)`); then a scan over
+  wavefronts computes every member's ready time from predecessor finishes,
+  channel transfers, DRAM weight/input fetches and fused-stack barriers
+  (`repro_torch.kernels.ref.wavefront_scan_ref`);
 * FCFS contention (cores, bus/link channels, the DRAM port) is
   approximated as per-resource *prefix serialization* within the wavefront:
   the queue recurrence ``f_k = max(f_{k-1}, r_k) + d_k`` unrolls into
-  cumsum/cummax prefix ops (`repro_torch.kernels.ref.serialize_prefix_ref`),
-  and on CUDA the per-wavefront resource update runs as a hand-written
-  kernel (`repro_torch.kernels.wavefront.serialize_prefix`).
+  cumsum/cummax prefix ops (`repro_torch.kernels.ref.serialize_prefix_ref`);
+* on CUDA the whole scan of a chunk of genomes is one launch of a
+  hand-written kernel (`repro_torch.kernels.wavefront.wavefront_scan`, the
+  "fused" route); a graph too wide for it runs the scan as a loop with a
+  `serialize_prefix` kernel per queue update (the "step" route, see
+  `repro_torch.kernels.wavefront.scan_route`).
 
 The result is a *fitness approximation*: global heap order collapses to
 wavefront order, fresh-byte dedup and spill feedback are dropped, weights
@@ -43,8 +47,10 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels.ref import serialize_prefix_ref
-from repro_torch.kernels.wavefront import serialize_prefix
+from repro_torch.kernels.ref import (population_last, serialize_prefix_ref,
+                                     wavefront_scan_ref)
+from repro_torch.kernels.wavefront import (scan_route, serialize_prefix,
+                                           wavefront_scan)
 
 BIG = 1e30      # cycles stand-in for infeasible (CN, core) pairs
 NEG = -1e30     # release-time stand-in for "not queued on this resource"
@@ -91,21 +97,6 @@ def _pow2_at_least(k: int) -> int:
     return 1 << max(k - 1, 1).bit_length() if k > 1 else 1
 
 
-def _amax(x: torch.Tensor, dim: int, initial: float) -> torch.Tensor:
-    """Max over `dim` with a floor, as `numpy.max(x, axis=dim, initial=)`."""
-    return torch.clamp_min(torch.amax(x, dim=dim), initial)
-
-
-def _pmax0(a: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix max along axis 0 by shift-doubling."""
-    k = 1
-    while k < a.shape[0]:
-        pad = a.new_full((k,) + tuple(a.shape[1:]), NEG)
-        a = torch.maximum(a, torch.cat([pad, a[:-k]], dim=0))
-        k *= 2
-    return a
-
-
 class BatchedFitness:
     """Vectorized approximate (latency, energy) for genome populations.
 
@@ -115,18 +106,28 @@ class BatchedFitness:
     packages the scalarized approximate score for
     `GeneticAllocator(prefilter=...)`.
 
-    `use_kernel=True` serializes through the wrapper of the CUDA kernel
-    (which runs the kernel on CUDA tensors and the plain version on CPU
-    ones); `False` calls the plain PyTorch version directly — on CUDA that
-    exists only to hold the kernel against it.  `contention=None` is
-    "serialize" on CUDA and "backlog" on the CPU.
+    `use_kernel=True` scores "serialize" contention through the CUDA
+    kernels' wrappers (which run the kernels on CUDA tensors and the plain
+    versions on CPU ones); `False` runs the plain PyTorch loop directly — on
+    CUDA that exists only to hold the kernels against it.  `contention=None`
+    is "serialize" on CUDA and "backlog" on the CPU; the backlog model has
+    no kernel and always runs the plain loop.
+
+    `route` says how a chunk is scored: "fused" (one `wavefront_scan`
+    launch runs the whole scan over wavefronts), "step" (a loop over
+    wavefronts with a `serialize_prefix` launch per queue update) or
+    "plain" (the loop in plain PyTorch).  `kernel=None` lets `scan_route`
+    choose between the first two from the graph's shapes; "fused" or
+    "step" names the route (a graph that `scan_route` sends to "step"
+    cannot take "fused").
     """
 
     def __init__(self, engine, priority: str = "latency",
                  segment: bool = True, strict_layers: bool = False,
                  use_kernel: bool = True,
                  contention: str | None = None, model_spills: bool = True,
-                 max_batch: int = 256, device=None):
+                 max_batch: int = 256, device=None,
+                 kernel: str | None = None):
         if priority not in ("latency", "memory"):
             raise ValueError(f"unknown priority {priority!r}")
         self.device = resolve_device(device)
@@ -148,10 +149,26 @@ class BatchedFitness:
             raise ValueError(f"unknown contention model {contention!r}")
         self.contention = contention
         self.model_spills = bool(model_spills)
+        self.segment_mode = ("strict" if strict_layers
+                             else "greedy" if segment else "none")
         if on_cuda:
             # the one matrix product (per-level byte sums) stays full float32
             torch.backends.cuda.matmul.allow_tf32 = False
         self._build_static()
+        self._serialize_t = population_last(
+            serialize_prefix if self.use_kernel else serialize_prefix_ref)
+        kernels = self.use_kernel and contention == "serialize"
+        if kernel not in (None, "fused", "step"):
+            raise ValueError(f"unknown kernel {kernel!r}")
+        if kernel is not None and not kernels:
+            raise ValueError(f"kernel={kernel!r} needs use_kernel=True and "
+                             f"serialize contention")
+        rule = scan_route(self.n, self.width, self.n_cores, self.n_chan,
+                          self.n_layers, self.dmax)
+        if (kernel, rule) == ("fused", "step"):
+            raise ValueError(f"width {self.width} or {self.n} CNs take the "
+                             f"step route")
+        self.route = (kernel or rule) if kernels else "plain"
 
     # ---- static precompute (numpy, once per engine binding) ---------------
     def _build_static(self) -> None:
@@ -315,7 +332,6 @@ class BatchedFitness:
         self._t = {
             "wf": t(wf, i64),
             "member": t(wf < n),
-            "wf_pred": t(wf_pred, i64),
             "pred_ids": t(pred_ids, i64),
             "pred_b": t(pred_b, f32),
             "succ_ids": t(succ_ids, i64),
@@ -343,72 +359,45 @@ class BatchedFitness:
         self._t["lvl_t"] = t(lvl_oh.T.copy())
         # channel transfers exist: a channel serialization per wavefront
         self.comm = bool(self.dmax) and not self.shared_l1
+        # the scan's static tables (see `wavefront_scan_ref`)
+        self._st = {"wf": self._t["wf"], "member": self._t["member"],
+                    "wf_layer": t(layer_pad[wf], i64),
+                    "dram": self._t["dram_off"], "tot": self._t["dram_tot"],
+                    "act_cap": self._t["act_cap"],
+                    "layer_wb": self._t["layer_wb"],
+                    "w_cap": self._t["w_cap"]}
+        if self.dmax:
+            self._st["pu"] = t(wf_pred, i64)
 
         # numpy copies for the float64 lower bound
         self._np_pred_ids = pred_ids
         self._np_cyc64 = np.where(feas, tab.cycles, BIG)[sig]  # (n, C)
         self._np_layer = np.asarray(graph.layer, dtype=np.int64)
-        ser = serialize_prefix if self.use_kernel else serialize_prefix_ref
-
-        def _ser_t(free0, release, dur):
-            # population-last wrapper: (R, P) free + (R, W, P) items — the
-            # kernel takes contiguous (rows, W) queues with FCFS item order
-            # on the minor axis, so lay the inputs out as (P, R, W) rows
-            # before the call and pivot the results back as views
-            fin, free = ser(free0.t().contiguous(),
-                            release.permute(2, 0, 1).contiguous(),
-                            dur.permute(2, 0, 1).contiguous())
-            return fin.permute(1, 2, 0), free.t()
-        self._serialize_t = _ser_t
 
     # ---- scoring ------------------------------------------------------------
-    def _segments(self, cores_gl: torch.Tensor) -> torch.Tensor:
-        """(P, G) fused-stack segment ids replicating `_segments_from_arrays`
-        (greedy cut when a core's accumulated weight footprint overflows)."""
-        j = self._t
-        p = cores_gl.shape[0]
-        rows = torch.arange(p, device=self.device)
-        acc_w = torch.zeros((p, self.n_cores), dtype=torch.float32,
-                            device=self.device)
-        seg = torch.zeros(p, dtype=torch.int64, device=self.device)
-        segs = []
-        for layer in range(cores_gl.shape[1]):
-            core = cores_gl[:, layer]
-            wb = j["layer_wb"][layer]
-            cap = j["w_cap"][core]
-            hold = torch.minimum(wb, cap)
-            held = acc_w[rows, core]
-            active = (wb > 0) & (cap > 0)
-            cut = active & (held + hold > cap) & (held > 0)
-            seg = seg + cut.to(seg.dtype)
-            acc_w = torch.where(cut[:, None], 0.0, acc_w)
-            add = torch.where(active, hold, 0.0)
-            acc_w = acc_w.index_put((rows, core), add, accumulate=True)
-            segs.append(seg)
-        return torch.stack(segs, dim=1)
+    def scan_args(self, genomes: torch.Tensor):
+        """The arguments of the scan over wavefronts for a chunk of (P, G)
+        int64 genomes on this fitness's device: ``(xs, st, kwargs)``, as
+        `wavefront_scan` and `wavefront_scan_ref` take them after the
+        genomes."""
+        xs, _ = self._hoist(genomes)
+        return xs, self._st, self._scan_kwargs()
 
-    def _score(self, genomes: torch.Tensor):
-        """genomes (P, G) int64 -> (latency (P,), energy (P,)) float32."""
+    def _scan_kwargs(self) -> dict:
+        return dict(n=self.n, n_chan=self.n_chan, segment=self.segment_mode)
+
+    def _hoist(self, genomes: torch.Tensor):
+        """The scan's per-wavefront inputs for (P, G) genomes, and the
+        per-CN tensors the sums after the scan need."""
         j = self._t
         dev = self.device
         n, n_cores, n_chan = self.n, self.n_cores, self.n_chan
-        n_seg = self.n_layers
-        p = genomes.shape[0]
-
-        if self.strict_layers:
-            seg_gl = torch.arange(self.n_layers, device=dev)[None].expand(
-                genomes.shape)
-        elif self.segment:
-            seg_gl = self._segments(genomes)
-        else:
-            seg_gl = torch.zeros_like(genomes)
 
         # population-last layout throughout: per-CN tables are (n+1, P),
         # per-level slices (W, P) — gathers over the leading CN/level axis
         # land directly in loop layout and every reduction runs over a
         # leading axis with P as the contiguous minor dimension
         core_ng = genomes.t()[j["layer_pad"]]         # (n+1, P)
-        seg_ng = seg_gl.t()[j["layer_pad"]]
         ids_pad = torch.arange(n + 1, device=dev)[:, None]
         cyc_ng = j["cyc_nc"][ids_pad, core_ng]        # (n+1, P)
         ecs_ng = j["ecs_nc"][ids_pad, core_ng]
@@ -441,16 +430,14 @@ class BatchedFitness:
                 j["pred_ids"], j["edge_slot"]]            # (n+1, D, P)
 
         # hoist every genome-dependent per-wavefront gather AND every
-        # carry-independent per-level reduction out of the loop: the loop
-        # body then touches only small per-step slices plus the carried
-        # finish/resource state
+        # carry-independent per-level reduction out of the scan: each step
+        # then touches only its own slices plus the carried finish/resource
+        # state
         wf = j["wf"]                                   # (L, W)
         member = j["member"]                           # (L, W) bool
         cyc_x = cyc_ng[wf]                             # (L, W, P)
-        seg_x = seg_ng[wf]
         cw_x = core_ng[wf]
-        xs = {"wf": wf, "member": member, "cyc": cyc_x, "seg": seg_x,
-              "cw": cw_x, "dram": j["dram_off"], "tot": j["dram_tot"]}
+        xs = {"cyc": cyc_x, "cw": cw_x}
         comm = self.comm
         serialize = self.contention == "serialize"
         cores = torch.arange(n_cores, device=dev)
@@ -464,8 +451,6 @@ class BatchedFitness:
             # per-core frontier in-step
             xs["sc"] = torch.sum(torch.where(on, cyc_x[:, None], 0.0),
                                  dim=2)                # (L, C, P)
-        if self.dmax:
-            xs["pu"] = j["wf_pred"]                    # (L, W, D)
         if comm:
             # bundle each consumer's crossing transfers into one FCFS item
             # per channel: occupancy = sum of its fresh-byte hop times on
@@ -515,102 +500,25 @@ class BatchedFitness:
                 fc = fc + torch.stack(cols, dim=1)     # (L, C, P)
             xs["fc"] = fc
 
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        post = {"ecs_ng": ecs_ng}
+        if comm:
+            post.update(f8n=f8n, pucn=pucn, core_ng=core_ng)
+        return xs, post
 
-        finish = zeros(n + 1, p)
-        core_free = zeros(n_cores, p)
-        chan_free = zeros(max(n_chan, 1), p)
-        dram_free = zeros(p)
-        seg_front = zeros(n_seg, p)
-        used = zeros(n_cores, p)
-        spilled = zeros(n + 1, p)
-        dram_x = zeros(p)
-        neg_row = torch.full((1, p), NEG, dtype=torch.float32, device=dev)
-
-        for lv in range(self.n_wavefronts):
-            x = {k: v[lv] for k, v in xs.items()}
-            if self.dmax:
-                pf = finish[x["pu"]]                   # (W, D, P)
-                if comm:
-                    base = _amax(torch.where(x["cross"], NEG, pf), 1,
-                                 0.0)                  # same-core producers
-                    rel_b = _amax(torch.where(x["cross"], pf, NEG), 1,
-                                  NEG)                 # (W, P) bundle release
-                    occ_t = x["occ"]                   # (n_chan, W, P)
-                    rel_t = torch.where(occ_t > 0, rel_b[None], NEG)
-                    if serialize:
-                        fin_ch, chan_free = self._serialize_t(
-                            chan_free, rel_t, occ_t)
-                    else:
-                        fin_ch = torch.maximum(rel_t,
-                                               chan_free[:, None]) + occ_t
-                        chan_free = torch.maximum(
-                            chan_free + torch.sum(occ_t, dim=1),
-                            torch.amax(torch.where(occ_t > 0, fin_ch, NEG),
-                                       dim=1))
-                    arr = torch.amax(torch.where(occ_t > 0, fin_ch, NEG),
-                                     dim=0)
-                    data_ready = torch.maximum(base, arr)
-                else:
-                    data_ready = _amax(pf, 1, 0.0)
-            else:
-                data_ready = zeros(self.width, p)
-
-            # DRAM port: external inputs then layer-head weights, FCFS in
-            # wavefront order (release 0 — JIT prefetch staging is
-            # dropped); end offsets are static, NEG marks "no fetch"
-            ready = torch.maximum(data_ready,
-                                  dram_free[None] + x["dram"][:, None])
-            dram_free = dram_free + x["tot"]
-
-            # fused-stack barrier: a segment starts no earlier than the max
-            # finish of every earlier segment (exclusive prefix-max over
-            # the per-segment frontiers, gathered per item)
-            ex = torch.cat([neg_row, _pmax0(seg_front)[:-1]], dim=0)
-            barrier = torch.gather(ex, 0, x["seg"])
-            ready = torch.maximum(ready, barrier)
-
-            # per-core FCFS queue update — the (n_cores x P) step
-            mem = x["member"][:, None]
-            if serialize:
-                on_core = x["on"]                      # (C, W, P)
-                rel_c = torch.where(on_core, ready[None], NEG)
-                dur_c = torch.where(on_core, x["cyc"][None], 0.0)
-                fin_c, core_free = self._serialize_t(core_free, rel_c, dur_c)
-                fin_w = torch.sum(torch.where(on_core, fin_c, 0.0), dim=0)
-            else:
-                cf_w = torch.gather(core_free, 0, x["cw"])
-                fin_w = torch.where(
-                    mem, torch.maximum(ready, cf_w) + x["cyc"], 0.0)
-                core_free = (core_free + x["sc"]).scatter_reduce_(
-                    0, x["cw"], torch.where(mem, fin_w, NEG), "amax")
-
-            # activation-memory occupancy and spills, aggregated per
-            # wavefront: overflow beyond a core's activation capacity is
-            # written out (`spill_w`) and every consumer edge of a spilled
-            # producer reads its share back (`spill_r`), both through the
-            # DRAM port — the term that dominates exact-energy variance
-            if self.model_spills:
-                alloc_c = x["ac"]                      # (C, P)
-                over = torch.minimum(
-                    torch.clamp_min(used + alloc_c - j["act_cap"][:, None],
-                                    0.0), alloc_c)
-                frac = over / torch.clamp_min(alloc_c, 1.0)
-                frac_w = torch.gather(frac, 0, x["mw"])
-                # the pad row n takes every non-member's 0.0
-                spilled.index_add_(0, x["wf"],
-                                   torch.where(mem, x["aw"] * frac_w, 0.0))
-                dram_x = dram_x + torch.sum(over, dim=0)
-                used = torch.clamp_min(
-                    torch.minimum(used + alloc_c - over,
-                                  j["act_cap"][:, None]) - x["fc"], 0.0)
-
-            # non-members write 0.0 to the pad row n, which keeps
-            # finish[n] == 0 for the pad predecessor slots
-            finish.index_put_((x["wf"],), fin_w)
-            seg_front.scatter_reduce_(0, x["seg"],
-                                      torch.where(mem, fin_w, NEG), "amax")
+    def _score(self, genomes: torch.Tensor):
+        """genomes (P, G) int64 -> (latency (P,), energy (P,)) float32."""
+        j = self._t
+        xs, post = self._hoist(genomes)
+        # the scan over wavefronts: one kernel launch on the fused route
+        if self.route == "fused":
+            out = wavefront_scan(genomes, xs, self._st, **self._scan_kwargs())
+        else:
+            out = wavefront_scan_ref(
+                genomes, xs, self._st,
+                serialize=(self._serialize_t
+                           if self.contention == "serialize" else None),
+                **self._scan_kwargs())
+        finish, _, chan_free, dram_free, spilled, dram_x = out
 
         if self.model_spills and self.dmax:
             # spill readback resolves after the loop: a CN spills exactly
@@ -627,11 +535,13 @@ class BatchedFitness:
         latency = torch.maximum(torch.amax(finish, dim=0),
                                 dram_free + dram_x * self._dram_cc_per_byte)
         latency = torch.maximum(latency, torch.amax(chan_free, dim=0))
-        energy = (torch.sum(ecs_ng[:n], dim=0) + self._dram_e_const
-                  + dram_x * self._dram_e_per_byte)
-        if comm:
+        energy = (torch.sum(post["ecs_ng"][:self.n], dim=0)
+                  + self._dram_e_const + dram_x * self._dram_e_per_byte)
+        if self.comm:
+            pucn, core_ng = post["pucn"], post["core_ng"]
             energy = energy + torch.sum(
-                f8n * j["route_e"][pucn, core_ng[:, None]], dim=(0, 1))
+                post["f8n"] * j["route_e"][pucn, core_ng[:, None]],
+                dim=(0, 1))
         return latency, energy
 
     # ---- public API -------------------------------------------------------

@@ -126,10 +126,43 @@ PyObject* call(int (*fn)(P...), PyObject* const* args, Py_ssize_t n) {
   return call(fn, args, std::index_sequence_for<P...>{});
 }
 
+// The further launchers of a library with more than one kernel, which
+// REPRO_PY_ALSO registers while the library loads and REPRO_PY_MODULE adds
+// to the module beside `launch`.
+struct AlsoMethods {
+  static constexpr int kMax = 4;
+  PyMethodDef defs[kMax + 1] = {};   // null-terminated
+  int count = 0;
+};
+inline AlsoMethods& also_methods() {
+  static AlsoMethods methods;
+  return methods;
+}
+struct AlsoLaunch {
+  AlsoLaunch(const char* name, PyCFunction fn) {
+    AlsoMethods& m = also_methods();
+    if (m.count < AlsoMethods::kMax)
+      m.defs[m.count++] = {name, fn, METH_FASTCALL,
+                           "Launch a kernel; returns cudaGetLastError() as "
+                           "an int."};
+  }
+};
+
 }  // namespace repro
 
+// A further launcher of the library, as the module function `pyname`; put it
+// before REPRO_PY_MODULE.
+#define REPRO_PY_ALSO(pyname, launcher)                                       \
+  static PyObject* repro_py_##pyname(PyObject*, PyObject* const* args,        \
+                                     Py_ssize_t n) {                          \
+    return repro::call(launcher, args, n);                                    \
+  }                                                                           \
+  static repro::AlsoLaunch repro_py_also_##pyname(                            \
+      #pyname, (PyCFunction)(void (*)(void))repro_py_##pyname);
+
 // The library as the Python extension module `repro_kernel_<name>`, with
-// launch(*args) -> cudaError_t of `launcher`, and error_string(code).
+// launch(*args) -> cudaError_t of `launcher`, each REPRO_PY_ALSO launcher,
+// and error_string(code).
 #define REPRO_PY_MODULE(name, launcher)                                       \
   static PyObject* repro_py_launch(PyObject*, PyObject* const* args,          \
                                    Py_ssize_t n) {                            \
@@ -150,5 +183,12 @@ PyObject* call(int (*fn)(P...), PyObject* const* args, Py_ssize_t n) {
       PyModuleDef_HEAD_INIT, "repro_kernel_" #name, nullptr, -1,              \
       repro_py_methods};                                                      \
   PyMODINIT_FUNC PyInit_repro_kernel_##name(void) {                           \
-    return PyModule_Create(&repro_py_module);                                 \
+    PyObject* module = PyModule_Create(&repro_py_module);                     \
+    repro::AlsoMethods& also = repro::also_methods();                         \
+    if (module && also.count &&                                               \
+        PyModule_AddFunctions(module, also.defs) < 0) {                       \
+      Py_DECREF(module);                                                      \
+      return nullptr;                                                         \
+    }                                                                         \
+    return module;                                                            \
   }

@@ -72,6 +72,200 @@ def serialize_prefix_ref(free0: torch.Tensor, release: torch.Tensor,
     return fin, fin[..., -1]
 
 
+def population_last(serialize):
+    """`serialize` (queues as contiguous (rows, W) rows, FCFS order on the
+    minor axis) as a function of population-last tensors: (R, P) free and
+    (R, W, P) items, laid out as (P, R, W) rows for the call and pivoted
+    back as views."""
+    def ser_t(free0, release, dur):
+        fin, free = serialize(free0.t().contiguous(),
+                              release.permute(2, 0, 1).contiguous(),
+                              dur.permute(2, 0, 1).contiguous())
+        return fin.permute(1, 2, 0), free.t()
+    return ser_t
+
+
+def _amax(x: torch.Tensor, dim: int, initial: float) -> torch.Tensor:
+    """Max over `dim` with a floor, as `numpy.max(x, axis=dim, initial=)`."""
+    return torch.clamp_min(torch.amax(x, dim=dim), initial)
+
+
+def _pmax0(a: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix max along axis 0 by shift-doubling."""
+    k = 1
+    while k < a.shape[0]:
+        pad = a.new_full((k,) + tuple(a.shape[1:]), NEG)
+        a = torch.maximum(a, torch.cat([pad, a[:-k]], dim=0))
+        k *= 2
+    return a
+
+
+SEGMENTS = ("greedy", "strict", "none")
+
+
+def segments_ref(genomes: torch.Tensor, layer_wb: torch.Tensor,
+                 w_cap: torch.Tensor) -> torch.Tensor:
+    """(P, G) fused-stack segment ids of (P, G) genomes, replicating the
+    engine's `_segments_from_arrays`: a greedy cut when a core's accumulated
+    weight footprint overflows its weight memory."""
+    p = genomes.shape[0]
+    rows = torch.arange(p, device=genomes.device)
+    acc_w = torch.zeros((p, w_cap.shape[0]), dtype=torch.float32,
+                        device=genomes.device)
+    seg = torch.zeros(p, dtype=torch.int64, device=genomes.device)
+    segs = []
+    for layer in range(genomes.shape[1]):
+        core = genomes[:, layer]
+        wb = layer_wb[layer]
+        cap = w_cap[core]
+        hold = torch.minimum(wb, cap)
+        held = acc_w[rows, core]
+        active = (wb > 0) & (cap > 0)
+        cut = active & (held + hold > cap) & (held > 0)
+        seg = seg + cut.to(seg.dtype)
+        acc_w = torch.where(cut[:, None], 0.0, acc_w)
+        add = torch.where(active, hold, 0.0)
+        acc_w = acc_w.index_put((rows, core), add, accumulate=True)
+        segs.append(seg)
+    return torch.stack(segs, dim=1)
+
+
+def wavefront_scan_ref(genomes: torch.Tensor, xs: dict, st: dict, *, n: int,
+                       n_chan: int, segment: str = "greedy", serialize=None):
+    """The GA prefilter's scan over wavefronts (the loop of
+    `repro_torch.core.vectorized.BatchedFitness`), for one chunk of genomes.
+
+    ``genomes``: (P, G) int64 core per layer.  ``xs``: the chunk's hoisted
+    per-wavefront tensors, population last: "cyc", "cw" (L, W, P) cycles and
+    core of each slot; "on" (L, C, W, P) slot-on-core masks under
+    serialization, or "sc" (L, C, P) per-core cycle sums under the backlog
+    model; with channel transfers "cross" (L, W, D, P) and "occ" (L, H, W,
+    P); with the spill model "aw", "mw" (L, W, P) and "ac", "fc" (L, C, P).
+    ``st``: the static tables "wf", "member", "wf_layer", "dram" (L, W),
+    "tot" (L,), "act_cap", "w_cap" (C,), "layer_wb" (G,) and, when CNs have
+    predecessors, "pu" (L, W, D).  ``segment``: "greedy" (the cut of
+    `segments_ref`), "strict" (a segment per layer) or "none".
+    ``serialize``: a population-last FCFS serialization (see
+    `population_last`), or None for the backlog model.
+
+    Returns population-last ``(finish (n+1, P), core_free (C, P), chan_free
+    (max(H, 1), P), dram_free (P,), spilled (n+1, P), dram_x (P,))``.
+    """
+    if segment not in SEGMENTS:
+        raise ValueError(f"unknown segment mode {segment!r}")
+    dev = genomes.device
+    p = genomes.shape[0]
+    n_cores = st["w_cap"].shape[0]
+    if segment == "strict":
+        seg_gl = torch.arange(genomes.shape[1], device=dev)[None].expand(
+            genomes.shape)
+    elif segment == "greedy":
+        seg_gl = segments_ref(genomes, st["layer_wb"], st["w_cap"])
+    else:
+        seg_gl = torch.zeros_like(genomes)
+    seg_x = seg_gl.t()[st["wf_layer"]]                # (L, W, P)
+
+    comm = "cross" in xs
+    spills = "ac" in xs
+    dmax = "pu" in st
+    act_cap = st["act_cap"][:, None]
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    finish = zeros(n + 1, p)
+    core_free = zeros(n_cores, p)
+    chan_free = zeros(max(n_chan, 1), p)
+    dram_free = zeros(p)
+    seg_front = zeros(genomes.shape[1], p)
+    used = zeros(n_cores, p)
+    spilled = zeros(n + 1, p)
+    dram_x = zeros(p)
+    neg_row = torch.full((1, p), NEG, dtype=torch.float32, device=dev)
+
+    for lv in range(st["wf"].shape[0]):
+        x = {k: v[lv] for k, v in xs.items()}
+        wf, seg = st["wf"][lv], seg_x[lv]
+        if dmax:
+            pf = finish[st["pu"][lv]]                 # (W, D, P)
+            if comm:
+                base = _amax(torch.where(x["cross"], NEG, pf), 1,
+                             0.0)                     # same-core producers
+                rel_b = _amax(torch.where(x["cross"], pf, NEG), 1,
+                              NEG)                    # (W, P) bundle release
+                occ_t = x["occ"]                      # (n_chan, W, P)
+                rel_t = torch.where(occ_t > 0, rel_b[None], NEG)
+                if serialize is not None:
+                    fin_ch, chan_free = serialize(chan_free, rel_t, occ_t)
+                else:
+                    fin_ch = torch.maximum(rel_t,
+                                           chan_free[:, None]) + occ_t
+                    chan_free = torch.maximum(
+                        chan_free + torch.sum(occ_t, dim=1),
+                        torch.amax(torch.where(occ_t > 0, fin_ch, NEG),
+                                   dim=1))
+                arr = torch.amax(torch.where(occ_t > 0, fin_ch, NEG),
+                                 dim=0)
+                data_ready = torch.maximum(base, arr)
+            else:
+                data_ready = _amax(pf, 1, 0.0)
+        else:
+            data_ready = zeros(wf.shape[0], p)
+
+        # DRAM port: external inputs then layer-head weights, FCFS in
+        # wavefront order (release 0 — JIT prefetch staging is dropped); end
+        # offsets are static, NEG marks "no fetch"
+        ready = torch.maximum(data_ready,
+                              dram_free[None] + st["dram"][lv][:, None])
+        dram_free = dram_free + st["tot"][lv]
+
+        # fused-stack barrier: a segment starts no earlier than the max
+        # finish of every earlier segment (exclusive prefix-max over the
+        # per-segment frontiers, gathered per item)
+        ex = torch.cat([neg_row, _pmax0(seg_front)[:-1]], dim=0)
+        barrier = torch.gather(ex, 0, seg)
+        ready = torch.maximum(ready, barrier)
+
+        # per-core FCFS queue update — the (n_cores x P) step
+        mem = st["member"][lv][:, None]
+        if serialize is not None:
+            on_core = x["on"]                         # (C, W, P)
+            rel_c = torch.where(on_core, ready[None], NEG)
+            dur_c = torch.where(on_core, x["cyc"][None], 0.0)
+            fin_c, core_free = serialize(core_free, rel_c, dur_c)
+            fin_w = torch.sum(torch.where(on_core, fin_c, 0.0), dim=0)
+        else:
+            cf_w = torch.gather(core_free, 0, x["cw"])
+            fin_w = torch.where(
+                mem, torch.maximum(ready, cf_w) + x["cyc"], 0.0)
+            core_free = (core_free + x["sc"]).scatter_reduce_(
+                0, x["cw"], torch.where(mem, fin_w, NEG), "amax")
+
+        # activation-memory occupancy and spills, aggregated per wavefront:
+        # overflow beyond a core's activation capacity is written out
+        # (`spill_w`) and every consumer edge of a spilled producer reads its
+        # share back (`spill_r`, resolved by the caller after the scan), both
+        # through the DRAM port
+        if spills:
+            alloc_c = x["ac"]                         # (C, P)
+            over = torch.minimum(
+                torch.clamp_min(used + alloc_c - act_cap, 0.0), alloc_c)
+            frac = over / torch.clamp_min(alloc_c, 1.0)
+            frac_w = torch.gather(frac, 0, x["mw"])
+            # the pad row n takes every non-member's 0.0
+            spilled.index_add_(0, wf, torch.where(mem, x["aw"] * frac_w, 0.0))
+            dram_x = dram_x + torch.sum(over, dim=0)
+            used = torch.clamp_min(
+                torch.minimum(used + alloc_c - over, act_cap) - x["fc"], 0.0)
+
+        # non-members write 0.0 to the pad row n, which keeps finish[n] == 0
+        # for the pad predecessor slots
+        finish.index_put_((wf,), fin_w)
+        seg_front.scatter_reduce_(0, seg, torch.where(mem, fin_w, NEG),
+                                  "amax")
+    return finish, core_free, chan_free, dram_free, spilled, dram_x
+
+
 def _grouped_scores(q, k):
     """float32 scores of q (B, Hq, S, D) against k (B, Hkv, T, D), scaled by
     1/sqrt(D), as (B, Hkv, G, S, T)."""

@@ -16,6 +16,7 @@ from repro_torch.api.session import ExplorationSession
 from repro_torch.configs import ARCHS, reduce_config
 from repro_torch.configs.paper_workloads import squeezenet
 from repro_torch.core.vectorized import BatchedFitness
+from repro_torch.hw import catalog
 from repro_torch.hw.catalog import mc_hetero, mc_hom_tpu_chip4
 from repro_torch.kernels import ref
 from repro_torch.kernels import decode_attention as decode_module
@@ -36,7 +37,8 @@ from repro_torch.kernels import rwkv6_scan as rwkv_module
 from repro_torch.kernels import ssd_scan as ssd_module
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.kernels.wavefront import serialize_prefix
+from repro_torch.kernels import wavefront as wfm
+from repro_torch.kernels.wavefront import serialize_prefix, wavefront_scan
 from repro_torch.models import zoo
 from repro_torch.models.module import init_from_specs
 from repro_torch.models.transformer import logits_f32
@@ -84,16 +86,111 @@ def test_fitness_kernel_path_matches_plain_and_cpu(cuda, arch):
     engine = ExplorationSession(device=cuda).engine(w, acc, ("tile", 8, 1))
     pop = population(w, acc, 16, seed=1)
     kern = BatchedFitness(engine, device=cuda)
-    assert kern.contention == "serialize"
-    before = serialize_prefix.launches
+    assert kern.contention == "serialize" and kern.route == "fused"
+    before = (wavefront_scan.launches, serialize_prefix.launches)
     s_k = kern.scores(pop)
-    assert serialize_prefix.launches - before == kern.n_wavefronts * (
-        2 if kern.comm else 1)
+    # the fused route: one scan launch for the one chunk, no queue launch
+    assert (wavefront_scan.launches - before[0],
+            serialize_prefix.launches - before[1]) == (1, 0)
     s_p = BatchedFitness(engine, device=cuda, use_kernel=False).scores(pop)
     s_c = BatchedFitness(engine, device="cpu",
                          contention="serialize").scores(pop)
     np.testing.assert_allclose(s_k, s_p, rtol=RTOL)
     np.testing.assert_allclose(s_k, s_c, rtol=RTOL)
+
+
+FITNESS_ARCHS = ["mc_hetero", "mc_hom_tpu_chip4", "diana", "aimc_4x4",
+                 "depfin"]
+
+
+def _fitness(cuda, arch, tile, **kw):
+    acc = getattr(catalog, arch)()
+    w = squeezenet()
+    engine = ExplorationSession(device=cuda).engine(w, acc, ("tile", tile, 1))
+    return engine, population(w, acc, 24, seed=2, spread=True), kw
+
+
+@pytest.mark.parametrize("tile", [8, 32])
+@pytest.mark.parametrize("arch", FITNESS_ARCHS)
+def test_fused_scan_matches_plain_and_cpu(cuda, arch, tile):
+    """The fused route against the plain loop on the card (bit for bit: each
+    operation rounds as the plain loop does at W <= 32) and against the CPU
+    within RTOL, with the spill model on and off."""
+    for spills in (True, False):
+        engine, pop, kw = _fitness(cuda, arch, tile, model_spills=spills)
+        fused = BatchedFitness(engine, device=cuda, **kw)
+        assert fused.route == "fused"
+        s_f = fused.scores(pop)
+        s_p = BatchedFitness(engine, device=cuda, use_kernel=False,
+                             **kw).scores(pop)
+        s_c = BatchedFitness(engine, device="cpu", contention="serialize",
+                             **kw).scores(pop)
+        worst = float(np.max(np.abs(s_f - s_c) / np.abs(s_c)))
+        print(f"{arch} tile {tile} spills {spills}: fused vs plain "
+              f"{float(np.max(np.abs(s_f - s_p) / np.abs(s_p)))}, "
+              f"vs CPU {worst}")
+        assert np.array_equal(s_f, s_p)
+        np.testing.assert_allclose(s_f, s_c, rtol=RTOL)
+
+
+def test_fused_route_launches_once_a_chunk(cuda):
+    engine, _, _ = _fitness(cuda, "mc_hetero", 8)
+    w, acc = engine.cost_model.workload, engine.accelerator
+    pop = population(w, acc, 300, seed=3)
+    fused = BatchedFitness(engine, device=cuda)
+    chunks = -(-len(pop) // fused.chunk_size(len(pop)))
+    assert chunks == 2
+    before = (wavefront_scan.launches, serialize_prefix.launches)
+    fused.scores(pop)
+    assert (wavefront_scan.launches - before[0],
+            serialize_prefix.launches - before[1]) == (chunks, 0)
+
+
+@pytest.mark.parametrize("arch", ["mc_hetero", "mc_hom_tpu_chip4", "diana"])
+def test_step_route_launches_a_queue_kernel_a_wavefront(cuda, arch):
+    engine, pop, _ = _fitness(cuda, arch, 8)
+    step = BatchedFitness(engine, device=cuda, kernel="step")
+    before = (wavefront_scan.launches, serialize_prefix.launches)
+    s_s = step.scores(pop)
+    assert (wavefront_scan.launches - before[0],
+            serialize_prefix.launches - before[1]) == (
+                0, step.n_wavefronts * (2 if step.comm else 1))
+    s_f = BatchedFitness(engine, device=cuda).scores(pop)
+    assert np.array_equal(s_s, s_f)
+
+
+def test_scan_layout_mirrors_the_source(cuda):
+    from repro_torch.kernels import build
+    lib = build.load_library("wavefront")
+    for args in [(601, 17, 5, 1, 31, 7), (986, 28, 5, 8, 38, 13),
+                 (227, 7, 17, 0, 31, 7), (5000, 32, 16, 8, 60, 32)]:
+        n, W, C, H, G, D = args
+        for flags in range(4):
+            comm, spills = bool(flags & 1), bool(flags & 2)
+            assert lib.scan_smem_bytes(*args, flags) == wfm.smem_bytes(
+                *args, comm=comm, spills=spills)
+            r = wfm.record_layout(W, C, H, D, comm, spills)
+            assert lib.scan_record_words(W, C, H, D, flags, 0) == r["words"]
+            assert lib.scan_record_words(W, C, H, D, flags, 1) == \
+                r["static_words"]
+
+
+def test_wavefront_scan_refuses_what_the_kernel_does_not_take(cuda):
+    engine, pop, _ = _fitness(cuda, "mc_hetero", 8)
+    bf = BatchedFitness(engine, device=cuda)
+    g = torch.as_tensor(pop, device=cuda)
+    xs, st, kw = bf.scan_args(g)
+    with pytest.raises(TypeError):
+        wavefront_scan(g, {**xs, "cyc": xs["cyc"].double()}, st, **kw)
+    with pytest.raises(ValueError):
+        wavefront_scan(g, {**xs, "cyc": xs["cyc"].cpu()}, st, **kw)
+    with pytest.raises(ValueError):
+        wavefront_scan(g, {**xs, "occ": xs["occ"][:, :, :-1]}, st, **kw)
+    with pytest.raises(ValueError):
+        wavefront_scan(g[:-1], xs, st, **kw)
+    backlog = {k: v for k, v in xs.items() if k != "on"}
+    with pytest.raises(ValueError):
+        wavefront_scan(g, backlog, st, **kw)
 
 
 # ---- the serving kernels: rmsnorm, decode attention, flash attention -------
