@@ -18,7 +18,9 @@ non-zero and prints no `ok` line:
              tensor-core kernels, decode attention its split kernel, and
              the attention kernels' bf16 errors are also given in bf16
              ulps of the plain version in float32 (at most 2); flash
-             attention also at causal S != T (the top-left mask); the two
+             attention also at causal S != T (the top-left mask) and at
+             whisper's non-causal shapes (T 1500, D 64), moe_gemm also at
+             deepseek-v2's 160 experts; the two
              scans at every shape of their grids through each of their
              kernels (the tiled one and the old one), rwkv6 with
              logw at and far below the clip, and at the serving shapes the
@@ -32,7 +34,10 @@ non-zero and prints no `ok` line:
 5. explore — Stream's explore(prefilter=True) on the card, the DSE main
              path, with every launch count set to 0 just before it: one
              wavefront_scan launch a prefilter chunk, no other kernel;
-6. serve   — llama3.2-3b, zamba2-2.7b, rwkv6-3b and deepseek-moe-16b,
+   validate — the final schedule again with validate=True (the port's
+             race detector), and the detector's report;
+6. serve   — llama3.2-3b, zamba2-2.7b, rwkv6-3b, deepseek-moe-16b,
+             qwen2-vl-72b (16 of 80 layers) and deepseek-v2-236b (4 of 60),
              one after another, each at full width (seeded random weights
              on the card) through ServeEngine.serve, a serving main path
              each, with every launch count set to 0 just before it; then
@@ -42,7 +47,15 @@ non-zero and prints no `ok` line:
              prefill runs their tiled kernels), and the model freed before
              the next; for the three of them with scans or expert GEMMs,
              the two paths again on float32 weights at full width and
-             depth.
+             depth, for qwen2-vl-72b and deepseek-v2-236b at depth 2;
+   whisper — whisper-large-v3 at full width and depth (before qwen2-vl):
+             zoo.prefill over seeded frame embeddings and 16 greedy
+             zoo.decode_step calls, with every launch count set to 0 just
+             before them, the plain path on the same inputs, the uncached
+             encode + decode_stack forward both ways (the pass in which
+             cross attention reads the encoder output), a profiled
+             prefill and decode step, and the float32 gate at full depth
+             over the cached and the uncached passes.
 
 Then a line `{"kernels": [...]}`, the `nvidia-smi` name and power limit, and
 last `{"ok": true, "device": {...}}`.  Exits non-zero without CUDA.
@@ -81,22 +94,47 @@ WAVES = N_REQ // SLOTS
 # expert sums, each output rounded once to bf16), and through a deep stack
 # of random weights those one-ulp differences compound. Each limit is about
 # twice the difference measured on an H100 (see PERF.md): llama3.2-3b
-# 0.0506, zamba2-2.7b 0.113, rwkv6-3b 0.567, deepseek-moe-16b 0.0374, with
+# 0.0506, zamba2-2.7b 0.113, rwkv6-3b 0.567, deepseek-moe-16b 0.0374,
+# qwen2-vl-72b 0.0763 (16 layers), deepseek-v2-236b 0.0167 (4 layers), with
 # logits up to 4.4-8.3 in magnitude. For llama3.2-3b this bf16 comparison
 # is the gate, and at least one first token must be clear of a near tie.
-# For the three models of F32_CHECK it is a report: at such limits, and
+# For the models of F32_CHECK it is a report: at such limits, and
 # with top-1 margins of a few tenths, it could pass a wrong kernel (rwkv6-3b
 # compares no first token). Their gate is the float32 check below, with
 # each kernel held alone at its serving shape in bf16 in the kernel phase.
 SERVED = {"llama3.2-3b": (32, 0.1), "zamba2-2.7b": (16, 0.25),
-          "rwkv6-3b": (16, 1.2), "deepseek-moe-16b": (16, 0.1)}
+          "rwkv6-3b": (16, 1.2), "deepseek-moe-16b": (16, 0.1),
+          "qwen2-vl-72b": (16, 0.15), "deepseek-v2-236b": (16, 0.035)}
+# Depth of the models whose full depth does not fit one card: qwen2-vl-72b
+# (72.7 B parameters, 145 GB in bf16) runs 16 of its 80 layers at full
+# width (16.5 B, 33.1 GB), deepseek-v2-236b (240.6 B, 481 GB) 4 of its 60
+# (its dense first layer and 3 MoE layers of 160 routed experts and 2
+# shared: 13.6 B, 27.2 GB). Every other model runs at full depth.
+DEPTH = {"qwen2-vl-72b": 16, "deepseek-v2-236b": 4}
 # The gate of the scan and expert paths: the same comparison at full width
 # and depth in float32, where no bf16 rounding feeds the divergence. The
 # kernel path sums float32 in another order than the plain path: 6.1e-6
 # (deepseek-moe-16b) to 1.2e-4 (rwkv6-3b) measured on an H100, with logits
 # up to 4.8, so the limit is 1e-3.
-F32_CHECK = ("zamba2-2.7b", "rwkv6-3b", "deepseek-moe-16b")
+# model -> depth of its float32 check (None: full depth). qwen2-vl-72b and
+# deepseek-v2-236b run 2 layers there (8.5 and 11.0 GB of bf16 weights,
+# twice that in float32); whisper-large-v3 has its own check at full depth
+# (whisper_phase).
+F32_CHECK = {"zamba2-2.7b": None, "rwkv6-3b": None, "deepseek-moe-16b": None,
+             "qwen2-vl-72b": 2, "deepseek-v2-236b": 2}
 F32_LOGITS_TOL = 1e-3
+# whisper-large-v3 at full width and depth: zoo.prefill of 4 prompts of
+# PROMPT tokens over seeded frame embeddings (4, 1500, 1280), then
+# WHISPER_NEW greedy zoo.decode_step calls, as the reference's own smoke test
+# drives the entry points
+WHISPER = "whisper-large-v3"
+WHISPER_NEW = 16
+# whisper-large-v3's bf16 limits, kernel path against plain path, each about
+# twice the difference measured on an H100 (see PERF.md): the prefill's
+# logits 0.0199, the first decode step's 0.0196, the uncached forward's
+# 0.0394, with logits up to 2.9 in magnitude. Its gate is the float32 check
+# at full depth (whisper_phase).
+WHISPER_TOL = {"prefill": 0.04, "decode": 0.04, "uncached": 0.08}
 # the middle of a wave's decode steps of llama3.2-3b, which attend over
 # 129..159 positions
 SERVE_CUR = PROMPT + SERVED["llama3.2-3b"][0] // 2
@@ -232,6 +270,28 @@ def device_times(fn) -> tuple[float, list]:
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     return wall * 1e3, rows
+
+
+def step_profile(fn) -> tuple[dict, list]:
+    """`fn` under the profiler after one warm-up under it: the line's
+    profile (wall ms, device busy ms, idle share, launches, the ten
+    largest kernels) and the device kernels' rows (us, name, count)."""
+    device_times(fn)
+    wall_ms, rows = device_times(fn)
+    kernels = [r for r in rows if not r[1].startswith("aten::")]
+    busy = sum(r[0] for r in kernels) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall_ms,
+            "kernel_launches": sum(r[2] for r in kernels),
+            "top": [{"name": k[:90], "device_ms": us / 1e3, "count": c}
+                    for us, k, c in kernels[:10]]}, kernels
+
+
+def assert_variant(kernels, kernel: str, suffix: str) -> None:
+    """Every profiled launch of `kernel` ran its `suffix` variant, and
+    there was at least one."""
+    names = [k for _, k, _ in kernels if kernel in k]
+    assert names and all(kernel + suffix in k for k in names), names
 
 
 def kernel_device_ms(fn, name: str, iters: int = 100, tries: int = 3,
@@ -575,7 +635,8 @@ def check_rmsnorm(dev) -> dict:
     errs = {}
     for shape in [(SLOTS, 1, 3072), (SLOTS, PROMPT, 3072), (4, 37, 96),
                   (1, 300, 64), (SLOTS, 2560), (SLOTS, PROMPT, 5120),
-                  (3, 100)]:
+                  (3, 100), (SLOTS, PROMPT, 8192), (SLOTS, 1, 512),
+                  (SLOTS, PROMPT, 512)]:
         for dtype in ("float32", "bfloat16"):
             for sdtype in sorted({dtype, "float32"}):
                 x = tensor(rng, shape, dtype, dev)
@@ -624,15 +685,17 @@ def check_decode_attention(dev) -> dict:
     from repro_torch.kernels.ref import decode_attention_ref
     rng = np.random.default_rng(3)
     errs, ulps = {}, {}
-    for layout, hq, hkv in (("tpu", 8, 8), ("model", 24, 8)):
+    # the last layout and shape are whisper-large-v3's self attention
+    for layout, hq, hkv in (("tpu", 8, 8), ("model", 24, 8),
+                            ("model", 64, 8), ("model", 20, 20)):
         for B, T, D in ((SLOTS, MAX_LEN, 128), (2, 200, 64), (3, 64, 128),
-                        (SLOTS, MAX_LEN, 80)):
+                        (SLOTS, MAX_LEN, 80), (SLOTS, MAX_LEN, 64)):
             for cur in (0, 1, 100, T, T + 5):
                 for dtype in ("float32", "bfloat16"):
                     q = tensor(rng, (B, hq, D), dtype, dev)
                     k, v = _kv(rng, layout, B, hkv, T, D, dtype, dev)
-                    key = (f"{layout}-{B}x{T}x{D}-cur{cur}-{dtype}-"
-                           f"{variant(q, k, v)}")
+                    key = (f"{layout}-G{hq // hkv}-{B}x{T}x{D}-cur{cur}-"
+                           f"{dtype}-{variant(q, k, v)}")
                     got = decode_attention_fwd(q, k, v, cur)
                     errs[key] = held(got, decode_attention_ref(q, k, v, cur),
                                      dtype)
@@ -649,6 +712,9 @@ def check_decode_attention(dev) -> dict:
             decode_attention_ref(q, k, v, SERVE_CUR), dtype)
     split = {k: u for k, u in ulps.items() if k.endswith("split")}
     assert split and max(split.values()) <= 2.0, split
+    # whisper's self attention in bf16 ran the split kernel
+    whisper = [k for k in ulps if k.startswith(f"model-G1-{SLOTS}x{MAX_LEN}x64")]
+    assert whisper and all(k in split for k in whisper), whisper
     q = tensor(rng, (SLOTS, 24, 128), "bfloat16", dev)
     k, v = _kv(rng, "model", SLOTS, 8, MAX_LEN, 128, "bfloat16", dev)
     assert variant(q, k, v) == "split"
@@ -714,11 +780,13 @@ def check_flash_attention(dev) -> dict:
             q = tensor(rng, (B, hq, S, D), dtype, dev)
         return (q, *_kv(rng, layout, B, hkv, S, D, dtype, dev))
 
+    # the last layout and shape are whisper-large-v3's self attention at
+    # prefill (causal, S = T = PROMPT, 20 heads of D 64)
     for layout, hq, hkv in (("tpu", 8, 8), ("model", 24, 8),
-                            ("model", 16, 2)):
+                            ("model", 16, 2), ("model", 20, 20)):
         for B, S, D in ((SLOTS, PROMPT, 128), (1, 40, 128), (2, 200, 64),
                         (SLOTS, PROMPT, 80), (1, 1, 128), (2, 65, 80),
-                        (1, 200, 128)):
+                        (1, 200, 128), (SLOTS, PROMPT, 64)):
             for causal in (True, False):
                 for dtype in ("float32", "bfloat16"):
                     q, k, v = qkv(layout, B, hq, hkv, S, D, dtype)
@@ -750,6 +818,8 @@ def check_flash_attention(dev) -> dict:
         "bfloat16")
     mma = {k: u for k, u in ulps.items() if k.endswith("mma")}
     assert mma and max(mma.values()) <= 2.0, mma
+    # whisper's causal self attention in bf16 ran the tensor-core kernel
+    assert f"model-G1-{SLOTS}x{PROMPT}x64-causal1-bfloat16-mma" in mma
     q, k, v = qkv("model", SLOTS, 24, 8, PROMPT, 128, "bfloat16")
     assert variant(q, k, v) == "mma"
     n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
@@ -789,7 +859,31 @@ def check_flash_attention(dev) -> dict:
                                                          causal=True))
     d80["variant"] = "mma"
     d80["shape"] = [SLOTS, 32, 32, PROMPT, 80, "causal"]
+    # whisper-large-v3: 20 heads of D 64, non-causal over its 1500 frames,
+    # in the model's transposed views: the encoder (S = T = 1500), a
+    # prefill's cross attention (S = PROMPT) and a decode step's (S = 1)
+    whisper = {}
+    for S in (1500, PROMPT, 1):
+        q = tensor(rng, (SLOTS, S, 20, 64), "bfloat16", dev).transpose(1, 2)
+        k, v = _kv(rng, "model", SLOTS, 20, 1500, 64, "bfloat16", dev)
+        assert variant(q, k, v) == "mma"
+        w = timed(lambda: flash_attention_fwd(q, k, v, causal=False),
+                  lambda: flash_attention_ref(q, k, v, causal=False),
+                  lambda: F.scaled_dot_product_attention(q, k, v),
+                  "flash_attention_kernel_mma",
+                  (2 * (2 * q.numel() + k.numel() + v.numel()),
+                   4 * SLOTS * 20 * S * 1500 * 64, BF16_OPS_PER_S),
+                  plain_iters=20, iters=50)
+        got = flash_attention_fwd(q, k, v, causal=False)
+        w["max_abs_err"] = held(got, flash_attention_ref(q, k, v,
+                                                         causal=False),
+                                "bfloat16")
+        w["max_ulps"] = bf16_ulps(got, flash_attention_ref(
+            *as_float(q, k, v), causal=False))
+        w["shape"] = [SLOTS, 20, 20, S, 1500, 64, "non-causal"]
+        whisper[f"S{S}"] = w
     return {"errors": errs, "ulps": ulps, "main": t, "d80": d80,
+            "whisper": whisper,
             "shape": [SLOTS, 24, 8, PROMPT, 128, "causal"]}
 
 
@@ -1028,6 +1122,24 @@ def check_moe_gemm(dev) -> dict:
         t["max_abs_err"] = held_tol(moe_gemm(x, w), moe_gemm_ref(x, w),
                                     MOE_TOL["bfloat16"])
         times[f"{C}x{K}x{N}"] = t
+    # deepseek-v2-236b: 160 experts, d_model 5120, d_ff_expert 1536; C 8 at
+    # a decode step of 4 slots, C 24 at a prefill of 4 x 128 tokens
+    for K, N in ((5120, 1536), (1536, 5120)):
+        w = randn((160, K, N), "bfloat16", 0.02)
+        for C in (8, 24):
+            x = randn((160, C, K), "bfloat16", 1.0)
+            assert variant(x, w) == "mma"
+            t = timed(lambda: moe_gemm(x, w), lambda: moe_gemm_ref(x, w),
+                      lambda: torch.bmm(x, w), "moe_gemm_kernel_mma",
+                      ((x.numel() + w.numel() + 160 * C * N) * 2,
+                       2 * 160 * C * K * N, BF16_OPS_PER_S),
+                      plain_iters=5, iters=20)
+            assert t["device_ms"] is not None
+            t["variant"] = "mma"
+            t["max_abs_err"] = held_tol(moe_gemm(x, w), moe_gemm_ref(x, w),
+                                        MOE_TOL["bfloat16"])
+            times[f"E160-{C}x{K}x{N}"] = t
+        del w
     return {"errors": errs, "main": times["8x2048x1408"], "times": times,
             "tolerance": MOE_TOL, "shape": [64, 8, 2048, 1408]}
 
@@ -1042,7 +1154,7 @@ def serve_phase(dev, counters, arch: str) -> dict:
     from repro_torch.models.module import init_from_specs, param_bytes
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = ARCHS[arch]
+    cfg = cut(ARCHS[arch], DEPTH.get(arch))
     new, logits_tol = SERVED[arch]
     decode_steps = WAVES * (new - 1)
     specs = zoo.build_param_specs(cfg)
@@ -1125,11 +1237,8 @@ def serve_phase(dev, counters, arch: str) -> dict:
 
     # one prefill wave under the profiler: device busy ms, each port
     # kernel's share, and the scans' kernels by name
-    device_times(lambda: engine.prefill_step(requests()[:SLOTS]).tolist())
-    pre_ms, pre_rows = device_times(
+    pre_profile, pre_kernels = step_profile(
         lambda: engine.prefill_step(requests()[:SLOTS]).tolist())
-    pre_kernels = [r for r in pre_rows if not r[1].startswith("aten::")]
-    pre_busy = sum(r[0] for r in pre_kernels) / 1e3
     by_kernel = {}
     for name in counters:
         hits = [r for r in pre_kernels if f"{name}_kernel" in r[1]]
@@ -1138,30 +1247,22 @@ def serve_phase(dev, counters, arch: str) -> dict:
     # the bf16 prefill runs the redesigned scans
     for name in ("ssd_scan", "rwkv6_scan"):
         if launches[name]:
-            names = [k for _, k, _ in pre_kernels if f"{name}_kernel" in k]
-            assert names and all(f"{name}_kernel_tiled" in k for k in names), \
-                names
+            assert_variant(pre_kernels, f"{name}_kernel", "_tiled")
             assert by_kernel[name]["count"] == per_prefill[name]
     scan_ms = by_kernel["ssd_scan"]["device_ms"] + \
         by_kernel["rwkv6_scan"]["device_ms"]
 
     # one decode step under the profiler: device busy and idle share
     tok = engine.decode_once(engine.prefill_step(requests()[:SLOTS]))
-    device_times(lambda: engine.decode_once(tok).tolist())   # warm-up
-    step_ms, rows = device_times(lambda: engine.decode_once(tok).tolist())
-    kernels = [r for r in rows if not r[1].startswith("aten::")]
-    busy_ms = sum(r[0] for r in kernels) / 1e3
+    step, kernels = step_profile(lambda: engine.decode_once(tok).tolist())
     # the bf16 serving shapes run the redesigned kernels
-    for name, kernel, suffix in (("moe_gemm", "moe_gemm_kernel", "_mma"),
-                              ("decode_attention", "decode_attention_kernel",
-                               "_split")):
+    for name, suffix in (("moe_gemm", "_mma"), ("decode_attention", "_split")):
         if launches[name]:
-            names = [k for _, k, _ in kernels if kernel in k]
-            assert names and all(kernel + suffix in k for k in names), names
+            assert_variant(kernels, f"{name}_kernel", suffix)
     n_bytes = param_bytes(specs)
     out = {
-        "phase": "serve", "arch": arch, "params": cfg.param_count(),
-        "param_bytes": n_bytes, "init_s": init_s, "requests": N_REQ,
+        "phase": "serve", "arch": arch, **depth_line(cfg),
+        "init_s": init_s, "requests": N_REQ,
         "batch_slots": SLOTS, "prompt_len": PROMPT, "max_len": MAX_LEN,
         "new_tokens": new, "waves": WAVES, "decode_steps": decode_steps,
         "wall_s": wall, "tokens_per_s": N_REQ * new / wall,
@@ -1175,29 +1276,45 @@ def serve_phase(dev, counters, arch: str) -> dict:
         "prefill_logits_max_abs": logits_max,
         "first_tokens_compared": int(clear.sum()),
         "prefill_profile": {
-            "wall_ms": pre_ms, "device_busy_ms": pre_busy,
-            "device_idle_share": 1 - pre_busy / pre_ms,
-            "kernel_launches": sum(r[2] for r in pre_kernels),
-            "port_kernels": by_kernel, "scan_device_ms": scan_ms,
-            "scan_share": scan_ms / pre_busy,
-            "top": [{"name": k[:90], "device_ms": us / 1e3, "count": c}
-                    for us, k, c in pre_kernels[:10]]},
-        "decode_step_profile": {
-            "wall_ms": step_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1 - busy_ms / step_ms,
-            "kernel_launches": sum(r[2] for r in kernels),
-            "top": [{"name": k[:90], "device_ms": us / 1e3, "count": c}
-                    for us, k, c in kernels[:10]]}}
+            **pre_profile, "port_kernels": by_kernel,
+            "scan_device_ms": scan_ms,
+            "scan_share": scan_ms / pre_profile["device_busy_ms"]},
+        "decode_step_profile": step}
     del engine, plain, params, logits
     torch.cuda.empty_cache()
     if arch in F32_CHECK:
-        out["float32_check"] = float32_check(dev, cfg)
+        out["float32_check"] = float32_check(
+            dev, cut(ARCHS[arch], F32_CHECK[arch]))
     return out
 
 
+def cut(cfg, n_layers):
+    """`cfg` with its depth cut to `n_layers` (None keeps it)."""
+    import dataclasses
+    return cfg if n_layers is None else dataclasses.replace(cfg,
+                                                            n_layers=n_layers)
+
+
+def depth_line(cfg) -> dict:
+    """The depth a phase ran and its parameters and bytes, beside the full
+    model's where the depth was cut."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import zoo
+    from repro_torch.models.module import param_bytes
+    line = {"n_layers": cfg.n_layers, "params": cfg.param_count(),
+            "param_bytes": param_bytes(zoo.build_param_specs(cfg))}
+    full = ARCHS[cfg.name]
+    if full.n_layers != cfg.n_layers:
+        line["depth_cut"] = {
+            "full_n_layers": full.n_layers, "full_params": full.param_count(),
+            "full_param_bytes": param_bytes(zoo.build_param_specs(full))}
+    return line
+
+
 def float32_check(dev, cfg) -> dict:
-    """`cfg` at full width and depth in float32, seeded weights: the kernel
-    path's prefill and first decode logits against the plain path's, and
+    """`cfg` at full width and the depth it has, in float32, seeded
+    weights: the kernel path's prefill and first decode logits against the
+    plain path's, and
     the largest difference. The kernel path's prefill runs under the
     profiler, which shows that its scans ran their tiled kernels."""
     import dataclasses
@@ -1236,13 +1353,206 @@ def float32_check(dev, cfg) -> dict:
     diffs = [float((a - b).abs().max())
              for a, b in zip(out["kernels"], out["plain"])]
     assert max(diffs) <= F32_LOGITS_TOL, diffs
-    res = {"n_layers": cfg.n_layers, "prefill_logits_max_abs_diff": diffs[0],
+    res = {**depth_line(cfg), "dtype": "float32",
+           "prefill_logits_max_abs_diff": diffs[0],
            "decode_logits_max_abs_diff": diffs[1],
            "logits_max_abs": float(out["plain"][0].abs().max()),
            "tol": F32_LOGITS_TOL, "tiled_scan_launches": scans}
     del params, out
     torch.cuda.empty_cache()
     return res
+
+
+def whisper_inputs(cfg, dev):
+    """The prompts (SLOTS, PROMPT) and seeded frame embeddings (SLOTS,
+    enc_len, d_model) in `cfg`'s type."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(7)
+    frames = torch.randn((SLOTS, cfg.enc["enc_len"], cfg.d_model),
+                         generator=gen, device=dev).to(cfg.dtype)
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        1, cfg.vocab, size=(SLOTS, PROMPT)), device=dev)
+    return tokens, frames
+
+
+def whisper_generate(cfg, params, tokens, frames, kernels, steps: int):
+    """The reference's entry points (`tests/test_models.py:49-68`):
+    `zoo.prefill` over the prompts and frames, `encdec.encode` for
+    `enc_out`, then `steps` greedy `zoo.decode_step` calls. Returns the
+    tokens (SLOTS, 1 + steps), the prefill and first decode step's logits,
+    and ms of the prefill, of the encode and per decode step."""
+    import torch
+    from repro_torch.models import encdec, zoo
+    caches = zoo_caches(zoo, cfg, tokens.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = zoo.prefill(cfg, params, {"tokens": tokens,
+                                               "enc_embeds": frames},
+                                 caches, kernels=kernels)
+    tok = logits.argmax(-1)
+    out = [tok.tolist()]
+    t1 = time.perf_counter()
+    enc = encdec.encode(cfg, params, frames, kernels=kernels)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    first = None
+    for i in range(steps):
+        lg, caches = zoo.decode_step(cfg, params, tok[:, None], caches,
+                                     PROMPT + i, enc_out=enc, kernels=kernels)
+        first = lg if first is None else first
+        tok = lg.argmax(-1)
+        out.append(tok.tolist())
+    t3 = time.perf_counter()
+    return {"tokens": np.array(out).T, "prefill": logits, "decode": first,
+            "prefill_ms": (t1 - t0) * 1e3, "encode_ms": (t2 - t1) * 1e3,
+            "decode_ms_per_step": (t3 - t2) * 1e3 / max(steps, 1),
+            "cross_cache_max_abs": float(caches["cross_k"].abs().max())}
+
+
+def whisper_uncached(cfg, params, tokens, frames, kernels):
+    """The uncached forward, where cross attention reads the encoder output:
+    `encode`, `decode_stack(caches=None)`, float32 logits at every
+    position."""
+    from repro_torch.models import encdec
+    from repro_torch.models.transformer import logits_f32
+    enc = encdec.encode(cfg, params, frames, kernels=kernels)
+    hidden, _ = encdec.decode_stack(cfg, params, tokens, enc,
+                                    kernels=kernels)
+    return logits_f32(hidden, params["embed"])
+
+
+def whisper_phase(dev, counters) -> dict:
+    """whisper-large-v3 at full width and depth, bf16 seeded weights: the
+    serving entry points with every launch count at 0 just before them,
+    the plain path on the same inputs, the uncached forward both ways, a
+    profiled prefill and decode step, then the float32 gate at full
+    depth (cached and uncached passes)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import zoo
+    from repro_torch.models.module import init_from_specs, param_bytes
+    cfg = ARCHS[WHISPER]
+    t0 = time.perf_counter()
+    params = init_from_specs(zoo.build_param_specs(cfg),
+                             torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens, frames = whisper_inputs(cfg, dev)
+    for use in (None, False):                                   # warm-up
+        whisper_generate(cfg, params, tokens, frames, use, 1)
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = whisper_generate(cfg, params, tokens, frames, None, WHISPER_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    per_prefill, per_step = zoo.kernel_launches(cfg)
+    expected = {name: per_prefill.get(name, 0) + WHISPER_NEW *
+                per_step.get(name, 0) for name in counters}
+    expected["flash_attention"] += cfg.enc["enc_layers"]   # the encode
+    assert launches == expected, (launches, expected)
+    assert run["tokens"].shape == (SLOTS, 1 + WHISPER_NEW)
+    assert ((0 <= run["tokens"]) & (run["tokens"] < cfg.vocab)).all()
+    assert bool(torch.isfinite(run["prefill"]).all())
+    # as in the reference, prefill leaves the cross K/V cache at zero
+    assert run["cross_cache_max_abs"] == 0.0
+
+    plain = whisper_generate(cfg, params, tokens, frames, False, WHISPER_NEW)
+    pre_diff = float((run["prefill"] - plain["prefill"]).abs().max())
+    dec_diff = float((run["decode"] - plain["decode"]).abs().max())
+    same = float((run["tokens"] == plain["tokens"]).mean())
+    unc = {name: whisper_uncached(cfg, params, tokens, frames, use)
+           for name, use in (("kernels", None), ("plain", False))}
+    assert bool(torch.isfinite(unc["kernels"]).all())
+    unc_diff = float((unc["kernels"] - unc["plain"]).abs().max())
+    diffs = {"prefill": pre_diff, "decode": dec_diff, "uncached": unc_diff}
+    assert all(diffs[k] <= WHISPER_TOL[k] for k in diffs), diffs
+    # the encoder output reaches the uncached logits only
+    enc_effect = float((unc["plain"][:, -1] - plain["prefill"]).abs().max())
+    del unc
+    timed_runs = {name: whisper_generate(cfg, params, tokens, frames, use,
+                                         WHISPER_NEW)
+                  for name, use in (("kernels", None), ("plain", False),
+                                    ("kernels_again", None),
+                                    ("plain_again", False))}
+
+    batch = {"tokens": tokens, "enc_embeds": frames}
+    caches = zoo_caches(zoo, cfg, dev)
+
+    pre_profile, pre_kernels = step_profile(
+        lambda: zoo.prefill(cfg, params, batch,
+                            caches)[0].argmax(-1).tolist())
+    from repro_torch.models import encdec
+    enc = encdec.encode(cfg, params, frames)
+    tok = tokens[:, -1:]
+    step, kernels = step_profile(
+        lambda: zoo.decode_step(cfg, params, tok, caches, PROMPT,
+                                enc_out=enc)[0].argmax(-1).tolist())
+    assert_variant(pre_kernels + kernels, "flash_attention_kernel", "_mma")
+    assert_variant(kernels, "decode_attention_kernel", "_split")
+    # the weights a cached decode step reads: the decoder without its cross
+    # K/V projections (their output is in the cache), and the tied embedding
+    specs = zoo.build_param_specs(cfg)
+    cross = specs["dec_layers"]["cross"]
+    n_bytes = (param_bytes(specs["dec_layers"]) + param_bytes(specs["dec_norm"])
+               + param_bytes(specs["embed"])
+               - param_bytes({"wk": cross["wk"], "wv": cross["wv"]}))
+    out = {
+        "phase": "whisper", "arch": WHISPER, **depth_line(cfg),
+        "enc_layers": cfg.enc["enc_layers"], "enc_len": cfg.enc["enc_len"],
+        "init_s": init_s, "batch": SLOTS, "prompt_len": PROMPT,
+        "max_len": MAX_LEN, "decode_steps": WHISPER_NEW, "wall_s": wall,
+        "tokens_per_s": SLOTS * WHISPER_NEW / wall, "launches": launches,
+        "prefill_ms": {k: v["prefill_ms"] for k, v in timed_runs.items()},
+        "encode_ms": {k: v["encode_ms"] for k, v in timed_runs.items()},
+        "decode_ms_per_step": {k: v["decode_ms_per_step"]
+                               for k, v in timed_runs.items()},
+        "weights_bound_ms_per_step": n_bytes / HBM_BYTES_PER_S * 1e3,
+        "max_memory_allocated": peak,
+        "token_agreement_with_plain": same,
+        "prefill_logits_max_abs_diff": pre_diff,
+        "decode_logits_max_abs_diff": dec_diff,
+        "uncached_logits_max_abs_diff": unc_diff, "logits_tol": WHISPER_TOL,
+        "encoder_effect_on_last_logits": enc_effect,
+        "prefill_logits_max_abs": float(plain["prefill"].abs().max()),
+        "cross_cache_max_abs": run["cross_cache_max_abs"],
+        "prefill_profile": pre_profile, "decode_step_profile": step}
+    del params, run, plain, timed_runs, caches, enc
+    torch.cuda.empty_cache()
+
+    # the float32 gate at full depth: the cached entry points and the
+    # uncached forward, kernel path against plain path
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    params = init_from_specs(zoo.build_param_specs(cfg),
+                             torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+    tokens, frames = whisper_inputs(cfg, dev)
+    got = {name: whisper_generate(cfg, params, tokens, frames, use, 1)
+           for name, use in (("kernels", None), ("plain", False))}
+    unc = {name: whisper_uncached(cfg, params, tokens, frames, use)
+           for name, use in (("kernels", None), ("plain", False))}
+    diffs = {"prefill": float((got["kernels"]["prefill"]
+                               - got["plain"]["prefill"]).abs().max()),
+             "decode": float((got["kernels"]["decode"]
+                              - got["plain"]["decode"]).abs().max()),
+             "uncached": float((unc["kernels"] - unc["plain"]).abs().max())}
+    assert max(diffs.values()) <= F32_LOGITS_TOL, diffs
+    out["float32_check"] = {
+        **depth_line(cfg), "dtype": "float32",
+        **{f"{k}_logits_max_abs_diff": v for k, v in diffs.items()},
+        "logits_max_abs": float(unc["plain"].abs().max()),
+        "tol": F32_LOGITS_TOL}
+    del params, got, unc
+    torch.cuda.empty_cache()
+    return out
 
 
 def zoo_caches(zoo, cfg, dev):
@@ -1257,6 +1567,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from repro_torch.analysis.staticcheck import racecheck
     from repro_torch.api.session import default_session
     from repro_torch.configs.paper_workloads import resnet18, squeezenet
     from repro_torch.core import explore
@@ -1336,7 +1647,7 @@ def main() -> int:
                 "max_abs_err": max(res["errors"].values()),
                 "errors": res["errors"], "shape": res["shape"],
                 "times": res.get("times", res["main"])}
-        for extra in ("d80", "ulps"):
+        for extra in ("d80", "ulps", "whisper"):
             if extra in res:
                 line[extra] = res[extra]
         if "state_tolerance" in res:
@@ -1404,9 +1715,36 @@ def main() -> int:
           "allocation_equals_unfiltered": bool(
               np.array_equal(res.allocation, base.allocation))})
 
+    # ---- the race detector over the final schedule -----------------------
+    # schedule(validate=True) drops the detector's report, as the
+    # reference's does: keep it from the one call the schedule makes
+    engine = session.engine(w, acc, GRAN)
+    validate_trace = racecheck.validate_trace
+    reports = []
+
+    def kept(*args, **kwargs):
+        reports.append(validate_trace(*args, **kwargs))
+        return reports[-1]
+
+    racecheck.validate_trace = kept
+    try:
+        t0 = time.perf_counter()
+        checked = engine.schedule(res.allocation, "latency", validate=True)
+        validate_s = time.perf_counter() - t0
+    finally:
+        racecheck.validate_trace = validate_trace
+    assert (checked.latency_cc, checked.energy_pj) == (res.latency_cc,
+                                                      res.energy_pj)
+    assert len(reports) == 1, reports
+    emit({"phase": "validate", "workload": w.name, "arch": acc.name,
+          "schedule_validate_s": validate_s, "report": reports[0]})
+
     # ---- the serving main paths: each model through ServeEngine.serve ----
     served = {}
     for arch in SERVED:
+        if arch == "qwen2-vl-72b":       # whisper first, in ARCHS' order
+            served[WHISPER] = whisper_phase(dev, counters)
+            emit(served[WHISPER])
         served[arch] = serve_phase(dev, counters, arch)
         emit(served[arch])
 
@@ -1443,7 +1781,8 @@ def main() -> int:
         "library_device_ms": None,
         "shape": list(TIMED_SHAPES[0])}]
     # each serving kernel's launches on the main path of its own family
-    # (llama3.2-3b for the first three), with every path's count beside
+    # (llama3.2-3b for the first three), with every path's count beside and
+    # the paths that launched it
     for name, replaces, arch in (
             ("rmsnorm", "src/repro/kernels/rmsnorm.py:20", "llama3.2-3b"),
             ("decode_attention", "src/repro/kernels/decode_attention.py:56",
@@ -1455,13 +1794,15 @@ def main() -> int:
             ("moe_gemm", "src/repro/kernels/moe_gemm.py:39",
              "deepseek-moe-16b")):
         m = serving[name]["main"]
+        by_path = {a: r["launches"][name] for a, r in served.items()}
         row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces, "paths": [f"serve {arch}"],
+            "replaces": replaces,
+            "paths": [f"{served[a]['phase']} {a}"
+                      for a, n in by_path.items() if n],
             "launches": served[arch]["launches"][name],
-            "launches_by_path": {a: r["launches"][name]
-                                 for a, r in served.items()},
+            "launches_by_path": by_path,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],

@@ -350,10 +350,11 @@ class ScheduleEngine:
         from the deepest stored snapshot whose prefix matches — the result
         is bit-identical to a cold run.
 
-        `validate` (record=True only) would run the schedule race detector
-        (`repro.analysis.staticcheck.racecheck.validate_trace` in the JAX
-        package) over the recorded trace; the detector is not ported yet, so
-        it raises `NotImplementedError`.
+        `validate` (record=True only) runs the schedule race detector
+        (`repro_torch.analysis.staticcheck.racecheck.validate_trace`) over the
+        recorded trace before returning — use it when debugging new
+        topologies or cost models; violations raise `TraceValidationError`
+        naming the broken invariant.
 
             >>> from repro_torch.configs.paper_workloads import squeezenet
             >>> from repro_torch.core import CostModel, build_graph
@@ -824,10 +825,11 @@ class ScheduleEngine:
             if not record:
                 raise ValueError("validate=True needs record=True "
                                  "(the detector consumes the trace)")
-            raise NotImplementedError(
-                "validate=True needs the schedule race detector "
-                "(repro/analysis/staticcheck/racecheck.py), which repro_torch "
-                "does not port yet: see ROADMAP.md, queue 1, 'racecheck'")
+            from repro_torch.analysis.staticcheck.racecheck import \
+                validate_trace
+            validate_trace(result, self.graph, acc,
+                           workload=self.cost_model.workload,
+                           segment=segment, strict_layers=strict_layers)
         return result
 
 

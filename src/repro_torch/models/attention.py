@@ -1,17 +1,29 @@
-"""Attention blocks: GQA/MQA (llama-family), with prefill (blocked
-attention) and decode (KV cache) paths — the GQA part of the JAX package's
-`repro/models/attention.py`, plus the MLA parameter specs.
+"""Attention blocks: GQA/MQA (llama-family, with RoPE or Qwen2-VL's M-RoPE,
+and the encoder-decoder's cross attention) and MLA (DeepSeek-V2,
+arXiv:2405.04434), with prefill (blocked attention) and decode (KV cache)
+paths, from the JAX package's `repro/models/attention.py`. MLA caches only
+the compressed latent (kv_lora) + shared rope key and uses the
+absorbed-matmul decode path (the W_UK / W_UV absorption trick).
 
 Caches are written in place where the reference returns a donated copy
-(`dynamic_update_slice`), and the same dict is returned. The MLA layer and
-its latent cache are ROADMAP queue 1, item 9; M-RoPE is item 8.
+(`dynamic_update_slice`), and the same dict is returned.
+
+`kernels=True` runs GQA's attention through the flash and decode attention
+kernels and MLA's `kv_norm` through the rmsnorm kernel.  MLA's prefill
+attention (q and k of D = qk_nope + qk_rope, v of D = v_dim) and its
+absorbed decode stay plain PyTorch on every device: in the reference they
+reach no Pallas kernel, and the flash kernel takes only k and v of one
+shape, as the TPU kernel does.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.models.layers import (apply_rope, blocked_attention,
-                                       decode_attention)
+from repro_torch.models.layers import (NEG_INF, apply_mrope, apply_rope,
+                                       blocked_attention, decode_attention,
+                                       rmsnorm)
 from repro_torch.models.module import ParamSpec
 
 
@@ -30,23 +42,33 @@ def gqa_specs(d_model: int, n_heads: int, n_kv: int, head_dim: int,
 
 
 def gqa_attention(params, x, positions, *, n_heads, n_kv, head_dim,
-                  rope="rope", rope_theta=1e4, causal=True, cache=None,
-                  cur_len=None, block_q=512, block_kv=1024,
+                  rope="rope", rope_theta=1e4, mrope_sections=None,
+                  mrope_positions=None, causal=True, cache=None,
+                  cur_len=None, block_q=512, block_kv=1024, cross_kv=None,
                   kernels: bool = False):
     """x: (B,S,D). cache: dict(k,v: (B,T,Hkv,Dh)) for decode and prefill,
     written in place; cur_len: Python int (decode).
 
-    Returns (out, cache)."""
-    if rope not in ("rope", "none"):
-        raise NotImplementedError(
-            f"rope={rope!r} is not ported yet: ROADMAP queue 1, item 8")
+    Returns (out, cache). cross_kv: (k, v) for encoder-decoder cross-attn
+    (no rope, no cache update, non-causal over encoder length); it returns
+    None for the cache."""
     B, S, D = x.shape
     q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
+
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = blocked_attention(q, k, v, causal=False, block_q=block_q,
+                                block_kv=block_kv, kernels=kernels)
+        return out.reshape(B, S, -1) @ params["wo"], None
+
     k = (x @ params["wk"]).reshape(B, S, n_kv, head_dim)
     v = (x @ params["wv"]).reshape(B, S, n_kv, head_dim)
     if rope == "rope":
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
+    elif rope == "mrope":
+        q = apply_mrope(q, mrope_positions, mrope_sections, rope_theta)
+        k = apply_mrope(k, mrope_positions, mrope_sections, rope_theta)
 
     if cache is None:
         out = blocked_attention(q, k, v, causal=causal, block_q=block_q,
@@ -73,7 +95,7 @@ def gqa_cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
 
 
 # ---------------------------------------------------------------------------
-# MLA (multi-head latent attention) parameter specs
+# MLA (multi-head latent attention)
 # ---------------------------------------------------------------------------
 
 def mla_specs(d_model: int, n_heads: int, qk_nope: int, qk_rope: int,
@@ -86,4 +108,70 @@ def mla_specs(d_model: int, n_heads: int, qk_nope: int, qk_rope: int,
         "wk_b": ParamSpec((kv_lora, n_heads * qk_nope), dtype, (None, "heads")),
         "wv_b": ParamSpec((kv_lora, n_heads * v_dim), dtype, (None, "heads")),
         "wo": ParamSpec((n_heads * v_dim, d_model), dtype, ("heads", "embed")),
+    }
+
+
+def mla_attention(params, x, positions, *, n_heads, qk_nope, qk_rope, v_dim,
+                  kv_lora, rope_theta=1e4, cache=None, cur_len=None,
+                  block_q=512, block_kv=1024, kernels: bool = False):
+    """Returns (out, cache); cache = dict(ckv: (B,T,kv_lora),
+    kr: (B,T,qk_rope)), written in place; cur_len: Python int (decode).
+
+    `kernels` runs only `kv_norm` through the rmsnorm kernel (see the
+    module's docstring)."""
+    B, S, D = x.shape
+    q = (x @ params["wq"]).reshape(B, S, n_heads, qk_nope + qk_rope)
+    qn, qr = q[..., :qk_nope], q[..., qk_nope:]
+    qr = apply_rope(qr, positions, rope_theta)
+
+    kv = x @ params["wkv_a"]
+    latent = kv[..., :kv_lora]          # a view with rows kv_lora + qk_rope
+    if kernels:                         # apart; the kernel takes rows
+        latent = latent.contiguous()    # laid end to end
+    ckv = rmsnorm(latent, params["kv_norm"], kernels=kernels)   # (B,S,ckv)
+    kr = apply_rope(kv[..., kv_lora:][:, :, None, :], positions,
+                    rope_theta)[:, :, 0, :]                     # (B,S,dr)
+
+    if cache is not None and S == 1:  # absorbed decode path
+        cache["ckv"][:, cur_len:cur_len + 1] = ckv
+        cache["kr"][:, cur_len:cur_len + 1] = kr
+        ckv_c, kr_c = cache["ckv"].float(), cache["kr"].float()
+        wk_b = params["wk_b"].reshape(kv_lora, n_heads, qk_nope).float()
+        wv_b = params["wv_b"].reshape(kv_lora, n_heads, v_dim).float()
+        # absorb W_UK into the query: scores via the latent space
+        q_c = torch.einsum("bhd,khd->bhk", qn[:, 0].float(), wk_b)  # (B,H,ckv)
+        s = (torch.einsum("bhk,btk->bht", q_c, ckv_c)
+             + torch.einsum("bhr,btr->bht", qr[:, 0].float(), kr_c)
+             ) / math.sqrt(qk_nope + qk_rope)
+        T = ckv_c.shape[1]
+        valid = torch.arange(T, device=x.device) <= cur_len
+        s = torch.where(valid[None, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bht,btk->bhk", p, ckv_c)             # (B,H,ckv)
+        heads = torch.einsum("bhk,khd->bhd", ctx, wv_b)
+        out = heads.reshape(B, 1, n_heads * v_dim).to(x.dtype)
+        return out @ params["wo"], cache
+
+    # prefill: decompress per-head keys/values, blocked attention (plain:
+    # k and v differ in D)
+    kn = (ckv @ params["wk_b"]).reshape(B, S, n_heads, qk_nope)
+    vv = (ckv @ params["wv_b"]).reshape(B, S, n_heads, v_dim)
+    kr_b = kr[:, :, None, :].expand(B, S, n_heads, qk_rope)
+    qf = torch.cat([qn, qr], dim=-1)
+    kf = torch.cat([kn, kr_b], dim=-1)
+    out = blocked_attention(qf, kf, vv, causal=True, block_q=block_q,
+                            block_kv=block_kv, kernels=False)
+    if cache is not None:  # prefill fills the latent cache
+        cache["ckv"][:, :S] = ckv
+        cache["kr"][:, :S] = kr
+    return out.reshape(B, S, -1) @ params["wo"], cache
+
+
+def mla_cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
+    m = cfg.mla
+    return {
+        "ckv": ParamSpec((batch, max_len, m["kv_lora"]), dtype,
+                         ("batch", "kv_seq", None), init="zeros"),
+        "kr": ParamSpec((batch, max_len, m["qk_rope"]), dtype,
+                        ("batch", "kv_seq", None), init="zeros"),
     }

@@ -1,13 +1,46 @@
-"""Whisper-style encoder-decoder parameter specs, from the JAX package's
-`repro/models/encdec.py`.  The encoder and decoder stacks are ROADMAP
-queue 1, item 11.
+"""Whisper-style encoder-decoder backbone (arXiv:2212.04356), from the JAX
+package's `repro/models/encdec.py`.
+
+The audio conv frontend is a stub, as in the reference: the encoder takes
+precomputed frame embeddings (B, enc_len, D).  Positions are sinusoidal
+(parameter-free).  The stacks are Python loops over the stacked layers
+(views, no copies), and the decoder's caches are written in place.
+
+`kernels=True` runs the encoder's attention, the decoder's self attention
+and its cross attention through the flash attention kernel, and the
+decoder's self attention at a decode step through the decode attention
+kernel (`layernorm` has no kernel).  `None` means the kernels on the card
+and the plain math on the CPU.
+
+As in the reference, a decoder given caches reads cross K/V from
+`cache["cross_k"]` / `cache["cross_v"]`, which nothing fills from the
+encoder output: on the cached (serving) path the encoder output reaches no
+logit (ROADMAP queue 3, item 7).  Only the uncached path (`caches=None`)
+projects the encoder output into cross K/V.
 """
 from __future__ import annotations
 
+import math
+
+import torch
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import gelu_mlp_specs
+from repro_torch.models.layers import gelu_mlp, gelu_mlp_specs, layernorm
 from repro_torch.models.module import ParamSpec, stack_specs
+from repro_torch.models.transformer import (_index, _n_layers,
+                                            resolve_kernels)
+
+F32 = torch.float32
+
+
+def sinusoidal(positions, d_model: int):
+    """positions: (B,S) -> (B,S,D) float32."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=F32, device=positions.device) / (half - 1))
+    args = positions[..., None].to(F32) * freqs
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
 def _ln_specs(cfg):
@@ -48,3 +81,83 @@ def whisper_param_specs(cfg: ArchConfig):
         "dec_layers": stack_specs(dec_layer_specs(cfg), cfg.n_layers),
         "dec_norm": _ln_specs(cfg),
     }
+
+
+def _ln(p, x):
+    return layernorm(x, p["scale"], p["bias"])
+
+
+def encode(cfg: ArchConfig, params, enc_embeds, *, kernels=None):
+    """enc_embeds: (B, enc_len, D) from the stub conv frontend."""
+    kernels = resolve_kernels(kernels, enc_embeds.device)
+    B, T, D = enc_embeds.shape
+    pos = torch.arange(T, device=enc_embeds.device)[None].expand(B, T)
+    x = enc_embeds + sinusoidal(pos, D).to(enc_embeds.dtype)
+    layers = params["enc_layers"]
+    for i in range(_n_layers(layers)):
+        lp = _index(layers, i)
+        h = _ln(lp["ln1"], x)
+        y, _ = attn.gqa_attention(lp["attn"], h, pos, n_heads=cfg.n_heads,
+                                  n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                                  rope="none", causal=False, kernels=kernels)
+        x = x + y
+        x = x + gelu_mlp(lp["ffn"], _ln(lp["ln2"], x))
+    return _ln(params["enc_norm"], x)
+
+
+def decode_stack(cfg: ArchConfig, params, tokens, enc_out, *, caches=None,
+                 cur_len=None, kernels=None):
+    """tokens: (B,S). caches: dict(self_k/self_v (L,B,T,H,Dh),
+    cross_k/cross_v (L,B,Tenc,H,Dh)), written in place, or None (the
+    uncached forward, which projects `enc_out` into cross K/V; with caches
+    `enc_out` is not read); cur_len: Python int or None.
+
+    Returns (hidden, caches)."""
+    embed = params["embed"]
+    kernels = resolve_kernels(kernels, embed.device)
+    B, S = tokens.shape
+    base = 0 if cur_len is None else cur_len
+    pos = base + torch.arange(S, device=embed.device)[None].expand(B, S)
+    x = embed[tokens]
+    x = x + sinusoidal(pos, cfg.d_model).to(x.dtype)
+
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    heads = dict(n_heads=cfg.n_heads, n_kv=Hkv, head_dim=Dh, rope="none",
+                 kernels=kernels)
+    layers = params["dec_layers"]
+    for i in range(_n_layers(layers)):
+        lp = _index(layers, i)
+        cache_l = None if caches is None else _index(caches, i)
+        h = _ln(lp["ln1"], x)
+        self_cache = None
+        if cache_l is not None:
+            self_cache = {"k": cache_l["self_k"], "v": cache_l["self_v"]}
+        y, _ = attn.gqa_attention(lp["self"], h, pos, causal=True,
+                                  cache=self_cache, cur_len=cur_len, **heads)
+        x = x + y
+        # cross attention to the encoder output
+        h = _ln(lp["lnx"], x)
+        if cache_l is not None:
+            ck, cv = cache_l["cross_k"], cache_l["cross_v"]
+        else:
+            Te = enc_out.shape[1]
+            ck = (enc_out @ lp["cross"]["wk"]).reshape(B, Te, Hkv, Dh)
+            cv = (enc_out @ lp["cross"]["wv"]).reshape(B, Te, Hkv, Dh)
+        y, _ = attn.gqa_attention(lp["cross"], h, pos, cross_kv=(ck, cv),
+                                  **heads)
+        x = x + y
+        x = x + gelu_mlp(lp["ffn"], _ln(lp["ln2"], x))
+    return _ln(params["dec_norm"], x), caches
+
+
+def whisper_cache_specs(cfg: ArchConfig, batch: int, max_len: int):
+    L = cfg.n_layers
+    Te = cfg.enc["enc_len"]
+
+    def kv(T):
+        return ParamSpec((L, batch, T, cfg.n_kv_heads, cfg.head_dim),
+                         cfg.dtype, (None, "batch", "kv_seq", "kv_heads", None),
+                         init="zeros")
+
+    return {"self_k": kv(max_len), "self_v": kv(max_len),
+            "cross_k": kv(Te), "cross_v": kv(Te)}

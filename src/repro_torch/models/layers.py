@@ -1,5 +1,6 @@
 """Shared model layers, the dense part of the JAX package's
-`repro/models/layers.py`: norms, rotary embeddings, blocked
+`repro/models/layers.py`: norms, rotary embeddings (RoPE and Qwen2-VL's
+M-RoPE), blocked
 (FlashAttention-style memory-efficient) attention, decode attention and the
 GLU / GELU MLPs, and the fine-grained MoE FFN.
 
@@ -13,8 +14,7 @@ float32 first: a bf16 x bf16 product is exact in float32.
 the expert products of `moe_ffn` through the port's hand-written kernels
 (`repro_torch.kernels`), which compute the TPU kernels' functions; each
 wrapper's docstring names how that differs from the plain math here.
-`apply_mrope` and `decode_attention_kv_sharded` are not ported yet (ROADMAP
-queue 1, items 8 and 13).
+`decode_attention_kv_sharded` is not ported yet (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -62,16 +62,38 @@ def rope_frequencies(head_dim: int, theta: float = 1e4, device=None):
                                          device=device) / head_dim))
 
 
-def apply_rope(x, positions, theta: float = 1e4):
-    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
-    d = x.shape[-1]
-    freqs = rope_frequencies(d, theta, x.device)                # (D/2,)
-    angles = positions[..., None].to(F32) * freqs                # (..., S, D/2)
+def _rotate(x, angles):
+    """Rotate the halves of x's last axis by `angles` (..., S, D/2), in
+    float32, one angle for every head."""
     cos = torch.cos(angles)[..., None, :]                       # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float = 1e4):
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)                # (D/2,)
+    return _rotate(x, positions[..., None].to(F32) * freqs)     # (..., S, D/2)
+
+
+def apply_mrope(x, positions_thw, sections=(16, 24, 24), theta: float = 1e6):
+    """Qwen2-VL M-RoPE: head_dim/2 frequency slots split into (t, h, w)
+    sections, each rotated by its own position stream.
+
+    x: (B, S, H, D); positions_thw: (3, B, S).
+    """
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {d // 2}")
+    freqs = rope_frequencies(d, theta, x.device)                # (D/2,)
+    # each section of slots turns by its own stream: t, h or w
+    angles = [p[..., None] * f for p, f in
+              zip(positions_thw.to(F32), torch.split(freqs, list(sections)))]
+    return _rotate(x, torch.cat(angles, dim=-1))                # (B, S, D/2)
 
 
 # ---------------------------------------------------------------------------

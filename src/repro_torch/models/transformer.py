@@ -1,16 +1,17 @@
 """Decoder-only LM assembly, from the JAX package's
-`repro/models/transformer.py`: config-driven mixer (GQA / RWKV6 / Mamba2) +
-FFN (GLU / GELU / fine-grained MoE / RWKV channel-mix), pre-norm residual
-blocks, the Zamba2 hybrid stack with its shared attention block, the layer
-stacks as Python loops over the stacked parameters (views, no copies), and
-prefill / decode paths with per-layer caches written in place: KV caches by
-slice assignment, recurrent state (`state`, `conv`, `last_tm`, `last_cm`)
-by `copy_` into the stacked cache's views.
+`repro/models/transformer.py`: config-driven mixer (GQA / MLA / RWKV6 /
+Mamba2) + FFN (GLU / GELU / fine-grained MoE / RWKV channel-mix), pre-norm
+residual blocks, the Zamba2 hybrid stack with its shared attention block,
+the layer stacks as Python loops over the stacked parameters (views, no
+copies), and prefill / decode paths with per-layer caches written in place:
+KV and latent caches by slice assignment, recurrent state (`state`,
+`conv`, `last_tm`, `last_cm`) by `copy_` into the stacked cache's views.
 
-The parameter specs cover every family, so that `ArchConfig.param_count`
-holds for all ten configs; running whisper, MLA (deepseek-v2) or M-RoPE
-(qwen2-vl) raises `NotImplementedError` naming the ROADMAP item that ports
-it. `chunked_ce_loss` and the remat policies wait for training (item 12).
+Qwen2-VL's M-RoPE takes `mrope_positions` (3, B, S); without them the text
+positions drive all three streams, as in the reference.  The encoder-decoder
+(whisper) has its own stacks in `repro_torch.models.encdec`.
+`chunked_ce_loss` and the remat policies wait for training (ROADMAP queue
+1, item 12).
 """
 from __future__ import annotations
 
@@ -29,25 +30,16 @@ F32 = torch.float32
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for a configuration the port cannot run yet (mixer gqa, rwkv6
-    or mamba2, the hybrid stack, ffn glu, gelu, moe, rwkv_cm or none, rope
-    or no rope, rms or ln norm)."""
-    if cfg.family == "encdec":
-        what, item = "the encoder-decoder (whisper)", 11
-    elif cfg.mixer == "mla":
-        what, item = "the MLA mixer", 9
-    elif cfg.rope == "mrope":
-        what, item = "M-RoPE", 8
-    else:
-        for field, ok in (("mixer", ("gqa", "rwkv6", "mamba2")),
-                          ("ffn", ("glu", "gelu", "moe", "rwkv_cm", "none")),
-                          ("rope", ("rope", "none")), ("norm", ("rms", "ln"))):
-            if getattr(cfg, field) not in ok:
-                raise ValueError(f"{cfg.name}: unknown {field} "
-                                 f"{getattr(cfg, field)!r}")
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: {what} is not ported yet: ROADMAP queue 1, item {item}")
+    """Raise ValueError for a configuration field the model code does not
+    know (mixer gqa, mla, rwkv6 or mamba2; ffn glu, gelu, moe, rwkv_cm or
+    none; rope, mrope or none; rms or ln norm)."""
+    for field, ok in (("mixer", ("gqa", "mla", "rwkv6", "mamba2")),
+                      ("ffn", ("glu", "gelu", "moe", "rwkv_cm", "none")),
+                      ("rope", ("rope", "mrope", "none")),
+                      ("norm", ("rms", "ln"))):
+        if getattr(cfg, field) not in ok:
+            raise ValueError(f"{cfg.name}: unknown {field} "
+                             f"{getattr(cfg, field)!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -129,14 +121,23 @@ def rwkv_layer_specs(cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 def apply_mixer(cfg: ArchConfig, p, x, positions, *, cache=None,
-                cur_len=None, kernels: bool = False):
+                cur_len=None, mrope_positions=None, kernels: bool = False):
     """Returns (y, cache); a recurrent mixer's new state is copied into the
     cache's views in place."""
     if cfg.mixer == "gqa":
         return attn.gqa_attention(
             p, x, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.head_dim, rope=cfg.rope, rope_theta=cfg.rope_theta,
-            cache=cache, cur_len=cur_len, kernels=kernels)
+            mrope_sections=cfg.mrope_sections,
+            mrope_positions=mrope_positions, cache=cache, cur_len=cur_len,
+            kernels=kernels)
+    if cfg.mixer == "mla":
+        m = cfg.mla
+        return attn.mla_attention(
+            p, x, positions, n_heads=cfg.n_heads, qk_nope=m["qk_nope"],
+            qk_rope=m["qk_rope"], v_dim=m["v_dim"], kv_lora=m["kv_lora"],
+            rope_theta=cfg.rope_theta, cache=cache, cur_len=cur_len,
+            kernels=kernels)
     if cfg.mixer == "rwkv6":
         state, last_tm = ((cache["state"], cache["last_tm"])
                           if cache is not None else (None, None))
@@ -158,17 +159,18 @@ def apply_mixer(cfg: ArchConfig, p, x, positions, *, cache=None,
             cache["state"].copy_(s_new)
             cache["conv"].copy_(conv_new)
         return y, cache
-    check_supported(cfg)
     raise ValueError(cfg.mixer)
 
 
 def apply_layer(cfg: ArchConfig, p, x, positions, *, moe_layer=False,
-                cache=None, cur_len=None, kernels: bool = False):
+                cache=None, cur_len=None, mrope_positions=None,
+                kernels: bool = False):
     """Pre-norm residual block. Returns (x, cache).  (The reference also
     returns the MoE aux loss, which only training reads: item 12.)"""
     h = _apply_norm(cfg, p["ln1"], x, kernels=kernels)
     y, cache = apply_mixer(cfg, p["mixer"], h, positions, cache=cache,
-                           cur_len=cur_len, kernels=kernels)
+                           cur_len=cur_len, mrope_positions=mrope_positions,
+                           kernels=kernels)
     x = x + y
     if cfg.mixer == "rwkv6":
         # rwkv channel-mix with its own token shift
@@ -218,19 +220,25 @@ def _index(tree, i):
     return tree[i]
 
 
+def _n_layers(stacked_params) -> int:
+    """The number of layers of a stacked layer group (each has `ln1`)."""
+    return stacked_params["ln1"]["scale"].shape[0]
+
+
 def _run_layers(cfg, stacked_params, x, positions, *, moe_layer=False,
-                caches=None, cur_len=None, kernels: bool = False,
-                layers=None):
+                caches=None, cur_len=None, mrope_positions=None,
+                kernels: bool = False, layers=None):
     """Apply a stacked layer group in order (the reference's `lax.scan`).
     caches: tree stacked on axis 0, written in place, or None; `layers`: the
     indices to run (default all)."""
     if layers is None:
-        layers = range(stacked_params["ln1"]["scale"].shape[0])
+        layers = range(_n_layers(stacked_params))
     for i in layers:
         cache_i = None if caches is None else _index(caches, i)
         x, _ = apply_layer(cfg, _index(stacked_params, i), x, positions,
                            moe_layer=moe_layer, cache=cache_i,
-                           cur_len=cur_len, kernels=kernels)
+                           cur_len=cur_len, mrope_positions=mrope_positions,
+                           kernels=kernels)
     return x
 
 
@@ -246,11 +254,12 @@ def resolve_kernels(kernels, device: torch.device) -> bool:
 
 
 def decoder_forward(cfg: ArchConfig, params, tokens, *, positions=None,
-                    caches=None, cur_len=None, kernels=None):
+                    mrope_positions=None, caches=None, cur_len=None,
+                    kernels=None):
     """tokens: (B,S) int. caches: the tree of `zoo.build_cache_specs`
     ({"layers": stacked cache tree}, plus "shared" for the hybrid stack and
     "dense_layers" for MoE) or None, written in place; cur_len: Python int
-    or None.
+    or None; mrope_positions: (3,B,S) for M-RoPE, or None.
 
     Returns (hidden: (B,S,D), caches)."""
     check_supported(cfg)
@@ -261,6 +270,8 @@ def decoder_forward(cfg: ArchConfig, params, tokens, *, positions=None,
         base = 0 if cur_len is None else cur_len
         positions = base + torch.arange(S, device=embed.device)[None, :]
         positions = positions.expand(B, S)
+    if mrope_positions is None and cfg.rope == "mrope":
+        mrope_positions = positions[None].expand(3, B, S)
     x = embed[tokens]
     run = dict(cur_len=cur_len, kernels=kernels)
 
@@ -278,6 +289,7 @@ def decoder_forward(cfg: ArchConfig, params, tokens, *, positions=None,
                 cache=None if caches is None else _index(caches["shared"], g),
                 **run)
     else:
+        run["mrope_positions"] = mrope_positions
         if "dense_layers" in params:
             x = _run_layers(cfg, params["dense_layers"], x, positions,
                             caches=group("dense_layers"), **run)

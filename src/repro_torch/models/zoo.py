@@ -5,7 +5,11 @@
 CUDA kernels (rmsnorm, flash attention, decode attention, the SSD and WKV
 scans, the expert GEMM) when the weights lie on the card and the plain model
 math on the CPU; `True` off the card raises; `False` runs the plain math on
-the card too, to compare the two.
+the card too, to compare the two.  All ten configs run: the decoders
+through `transformer.decoder_forward` (M-RoPE positions from
+`batch["mrope_positions"]` at prefill, text positions otherwise) and whisper
+through `encdec` (`batch["enc_embeds"]` at prefill; `decode_step` takes
+`enc_out`, which its cached path does not read, as in the reference).
 Caches are written in place. Training (`train_loss`) and `input_specs` wait
 for ROADMAP queue 1, item 12.
 """
@@ -60,6 +64,8 @@ def build_param_specs(cfg: ArchConfig):
 def _mixer_cache_specs(cfg: ArchConfig, batch: int, max_len: int):
     if cfg.mixer == "gqa":
         return attn.gqa_cache_specs(cfg, batch, max_len, cfg.dtype)
+    if cfg.mixer == "mla":
+        return attn.mla_cache_specs(cfg, batch, max_len, cfg.dtype)
     if cfg.mixer == "rwkv6":
         H = cfg.d_model // cfg.head_dim
         return {
@@ -88,8 +94,11 @@ def build_cache_specs(cfg: ArchConfig, batch: int, max_len: int):
     """Per-layer caches stacked over layers: KV for attention, the float32
     state and the token-shift / conv carry for RWKV6 and Mamba2; the hybrid
     stack adds one KV cache per shared-attention application ("shared"),
-    and MoE splits off its dense first layers ("dense_layers")."""
+    and MoE splits off its dense first layers ("dense_layers"); MLA caches
+    the latent and the rope key; whisper its self and cross K/V."""
     tfm.check_supported(cfg)
+    if cfg.family == "encdec":
+        return encdec.whisper_cache_specs(cfg, batch, max_len)
     per_layer = _mixer_cache_specs(cfg, batch, max_len)
     if cfg.hybrid:
         n_groups = cfg.n_layers // cfg.hybrid["attn_every"]
@@ -107,6 +116,10 @@ def kernel_launches(cfg: ArchConfig) -> tuple[dict, dict]:
     """Each CUDA kernel's launches in one prefill and in one decode step of
     `cfg` on the kernel path (kernels absent from a dict launch 0 times)."""
     n = cfg.n_layers
+    if cfg.family == "encdec":      # layernorm; encoder, self, cross
+        flash = cfg.enc["enc_layers"] + 2 * n
+        return ({"flash_attention": flash},
+                {"decode_attention": n, "flash_attention": n})
     if cfg.hybrid:                  # Mamba2 layers + the shared block
         g = n // cfg.hybrid["attn_every"]
         norms = 2 * n + 2 * g + 1   # ln1 and the gated norm; ln1, ln2
@@ -116,6 +129,9 @@ def kernel_launches(cfg: ArchConfig) -> tuple[dict, dict]:
         return ({"rmsnorm": 3 * n + 1, "rwkv6_scan": n},
                 {"rmsnorm": 3 * n + 1})
     moe = 3 * (n - cfg.moe["first_dense_layers"]) if cfg.ffn == "moe" else 0
+    if cfg.mixer == "mla":          # ln1, kv_norm, ln2; plain attention
+        return ({"rmsnorm": 3 * n + 1, "moe_gemm": moe},
+                {"rmsnorm": 3 * n + 1, "moe_gemm": moe})
     return ({"rmsnorm": 2 * n + 1, "flash_attention": n, "moe_gemm": moe},
             {"rmsnorm": 2 * n + 1, "decode_attention": n, "moe_gemm": moe})
 
@@ -126,22 +142,36 @@ def kernel_launches(cfg: ArchConfig) -> tuple[dict, dict]:
 
 def prefill(cfg: ArchConfig, params, batch, caches, *, kernels=None):
     """Run the prompt, fill caches in place, return last-token float32
-    logits (B, V) + caches."""
-    x, caches = tfm.decoder_forward(cfg, params, batch["tokens"],
-                                    caches=caches, cur_len=0, kernels=kernels)
+    logits (B, V) + caches.  batch: tokens (B,S) [+ enc_embeds (B,Te,D) for
+    whisper, mrope_positions (3,B,S) for M-RoPE]."""
+    if cfg.family == "encdec":
+        enc_out = encdec.encode(cfg, params, batch["enc_embeds"],
+                                kernels=kernels)
+        x, caches = encdec.decode_stack(cfg, params, batch["tokens"], enc_out,
+                                        caches=caches, cur_len=0,
+                                        kernels=kernels)
+        return tfm.logits_f32(x[:, -1], params["embed"]), caches
+    x, caches = tfm.decoder_forward(
+        cfg, params, batch["tokens"], caches=caches, cur_len=0,
+        mrope_positions=batch.get("mrope_positions"), kernels=kernels)
     return tfm.lm_head(cfg, params, x[:, -1]), caches
 
 
 def decode_step(cfg: ArchConfig, params, tokens, caches, cur_len: int, *,
-                kv_seq_shard=False, kernels=None):
+                kv_seq_shard=False, enc_out=None, kernels=None):
     """One decode step. tokens: (B,1); cur_len: Python int, the number of
-    positions already in the cache.
+    positions already in the cache; enc_out: whisper's encoder output.
 
     Returns (float32 logits (B,V), caches written in place)."""
     if kv_seq_shard:
         raise NotImplementedError(
             "kv_seq_shard (decode over a sequence-sharded cache) is not "
             "ported yet: ROADMAP queue 1, item 13")
+    if cfg.family == "encdec":
+        x, caches = encdec.decode_stack(cfg, params, tokens, enc_out,
+                                        caches=caches, cur_len=cur_len,
+                                        kernels=kernels)
+        return tfm.logits_f32(x[:, -1], params["embed"]), caches
     x, caches = tfm.decoder_forward(cfg, params, tokens, caches=caches,
                                     cur_len=cur_len, kernels=kernels)
     return tfm.lm_head(cfg, params, x[:, -1]), caches

@@ -39,7 +39,7 @@ from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels import wavefront as wfm
 from repro_torch.kernels.wavefront import serialize_prefix, wavefront_scan
-from repro_torch.models import zoo
+from repro_torch.models import encdec, zoo
 from repro_torch.models.module import init_from_specs
 from repro_torch.models.transformer import logits_f32
 
@@ -486,6 +486,115 @@ def test_scans_off_the_tiled_grid_take_the_old_kernel(cuda, kernel):
     torch.testing.assert_close(got[1], want[1], **STATE_TOL)
 
 
+# ---- the shapes of whisper, qwen2-vl and deepseek-v2 ----------------------
+
+@pytest.mark.parametrize("S", [1, 128, 1500])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_at_whisper_shapes(cuda, S, dtype):
+    """whisper-large-v3: 20 heads of D 64, non-causal against the 1500
+    encoder frames; S 1500 is the encoder, S 128 a prefill's cross
+    attention, S 1 a decode step's, all in the model's transposed views."""
+    q = _heads(cuda, "model", 2, 20, S, 64, dtype, 21)
+    k, v = _kv(cuda, "model", 2, 20, 1500, 64, dtype, 22)
+    assert flash_module.variant(q, k, v) == (
+        "mma" if dtype == "bfloat16" else "fma")
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, causal=False)
+    assert flash_attention_fwd.launches == before + 1
+    _close(got, flash_attention_ref(q, k, v, causal=False), dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_at_whisper_self_attention(cuda, causal, dtype):
+    """whisper-large-v3's decoder self attention at prefill: S = T = 128,
+    20 query heads over 20 KV heads (G 1), D 64, in the model's views; in
+    bf16 the tensor-core kernel, within 2 bf16 spacings of the float32
+    plain version."""
+    q = _heads(cuda, "model", 4, 20, 128, 64, dtype, 27)
+    k, v = _kv(cuda, "model", 4, 20, 128, 64, dtype, 28)
+    assert flash_module.variant(q, k, v) == (
+        "mma" if dtype == "bfloat16" else "fma")
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, causal=causal)
+    assert flash_attention_fwd.launches == before + 1
+    _close(got, flash_attention_ref(q, k, v, causal=causal), dtype)
+    if dtype == "bfloat16":
+        assert _bf16_ulps(got, flash_attention_ref(
+            q.float(), k.float(), v.float(), causal=causal)) <= 2.0
+
+
+@pytest.mark.parametrize("cur_len", [0, 1, 129, 143, 168])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_at_whisper_self_attention(cuda, cur_len, dtype):
+    """whisper-large-v3's decoder self attention at a decode step: 20 query
+    heads over 20 KV heads (G 1), D 64, the model's (B, T, H, D) cache of
+    168 positions as a transposed view."""
+    q = _on(cuda, normal((4, 20, 64), 29), dtype)
+    k, v = _kv(cuda, "model", 4, 20, 168, 64, dtype, 30)
+    assert decode_module.variant(q, k, v) == "split"
+    before = decode_attention_fwd.launches
+    got = decode_attention_fwd(q, k, v, cur_len)
+    assert decode_attention_fwd.launches == before + 1
+    _close(got, decode_attention_ref(q, k, v, cur_len), dtype)
+    if dtype == "bfloat16":
+        assert _bf16_ulps(got, decode_attention_ref(
+            q.float(), k.float(), v.float(), cur_len)) <= 2.0
+
+
+@pytest.mark.parametrize("cur_len", [1, 129, 150, 168])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_at_g8(cuda, cur_len, dtype):
+    """qwen2-vl-72b: 64 query heads over 8 KV heads (G 8), D 128, the
+    model's (B, T, Hkv, D) cache as a transposed view."""
+    q = _on(cuda, normal((4, 64, 128), 23), dtype)
+    k, v = _kv(cuda, "model", 4, 8, 168, 128, dtype, 24)
+    assert decode_module.variant(q, k, v) == "split"
+    before = decode_attention_fwd.launches
+    got = decode_attention_fwd(q, k, v, cur_len)
+    assert decode_attention_fwd.launches == before + 1
+    _close(got, decode_attention_ref(q, k, v, cur_len), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_of_mla_latent_from_its_contiguous_copy(cuda, dtype):
+    """deepseek-v2's kv_norm: the first 512 of each 576-wide row of
+    `x @ wkv_a`.  The kernel takes the contiguous copy (the vector path)
+    and refuses the strided view, which the model never passes."""
+    kv = _on(cuda, normal((4, 128, 576), 25), dtype)
+    s = _on(cuda, 1 + normal((512,), 26, 0.3), dtype)
+    latent = kv[..., :512]
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm_fwd(latent, s)
+    x = latent.contiguous()
+    assert rmsnorm_module.variant(x, s) == "vector"
+    before = rmsnorm_fwd.launches
+    got = rmsnorm_fwd(x, s)
+    assert rmsnorm_fwd.launches == before + 1
+    _close(got, rmsnorm_ref(x, s), dtype)
+
+
+@pytest.mark.parametrize("C", [8, 24])
+@pytest.mark.parametrize("K,N", [(5120, 1536), (1536, 5120)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gemm_at_deepseek_v2_shapes(cuda, C, K, N, dtype):
+    """160 routed experts, d_model 5120, d_ff_expert 1536: C 8 at a decode
+    step of 4 slots and C 24 at a prefill of 4 x 128 tokens (top 6).  The
+    1.26 G weights are drawn on the card from a seeded generator."""
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    x = _on(cuda, normal((160, C, K), 27, 1.0), dtype)
+    w = (0.02 * torch.randn((160, K, N), generator=gen, device=cuda)).to(
+        getattr(torch, dtype))
+    assert moe_gemm_module.variant(x, w) == (
+        "mma" if dtype == "bfloat16" else "fma")
+    before = moe_gemm.launches
+    got = moe_gemm(x, w)
+    assert moe_gemm.launches == before + 1
+    tol = ref.MOE_TOL[dtype]
+    torch.testing.assert_close(got.float(), moe_gemm_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
 # the serving shapes, and every C tile edge of the tensor-core kernel with
 # K and N multiples of 8 (its route) and not (the CUDA-core route)
 @pytest.mark.parametrize("E,C,K,N", [
@@ -618,17 +727,28 @@ _KERNELS = {"rmsnorm": rmsnorm_fwd, "flash_attention": flash_attention_fwd,
 
 def _kernel_and_plain_logits(cfg, params, toks, device):
     """Prefill and one decode step on the kernel path and on the plain path,
-    with each kernel's launches checked: {path: (prefill, decode) logits}."""
+    with each kernel's launches checked: {path: (prefill, decode) logits}.
+    Whisper gets seeded frame embeddings, and its decode step the encoder
+    output of the same path."""
     pre_n, step_n = zoo.kernel_launches(cfg)
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = _on(device, normal(
+            (2, cfg.enc["enc_len"], cfg.d_model), 14), "float32").to(
+                cfg.dtype)
     out = {}
     for name, kernels in (("kernels", None), ("plain", False)):
         caches = init_from_specs(zoo.build_cache_specs(cfg, 2, 40), 0,
                                  device=device)
         before = {k: fn.launches for k, fn in _KERNELS.items()}
-        pre, caches = zoo.prefill(cfg, params, {"tokens": toks}, caches,
+        pre, caches = zoo.prefill(cfg, params, batch, caches,
                                   kernels=kernels)
+        enc = None
+        if cfg.family == "encdec":
+            enc = encdec.encode(cfg, params, batch["enc_embeds"],
+                                kernels=False)
         dec, _ = zoo.decode_step(cfg, params, pre.argmax(-1)[:, None],
-                                 caches, 32, kernels=kernels)
+                                 caches, 32, enc_out=enc, kernels=kernels)
         used = {k: fn.launches - before[k] for k, fn in _KERNELS.items()}
         want = {k: pre_n.get(k, 0) + step_n.get(k, 0) for k in _KERNELS}
         assert used == (want if kernels is None else dict.fromkeys(used, 0))
@@ -637,7 +757,9 @@ def _kernel_and_plain_logits(cfg, params, toks, device):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-34b", "zamba2-2.7b",
-                                  "rwkv6-3b", "deepseek-moe-16b"])
+                                  "rwkv6-3b", "deepseek-moe-16b",
+                                  "whisper-large-v3", "qwen2-vl-72b",
+                                  "deepseek-v2-236b"])
 def test_reduced_decoder_kernel_path_matches_plain_path(cuda, arch):
     cfg = reduce_config(ARCHS[arch])
     params = init_from_specs(zoo.build_param_specs(cfg), 0, device=cuda)

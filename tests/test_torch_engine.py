@@ -134,11 +134,20 @@ def test_schedule_and_reference_scheduler_equal(engines):
 
 
 def test_validate_raises_until_racecheck_is_ported(engines):
-    rw, racc, _, port = engines
+    """`schedule(validate=True)` runs the port's race detector and returns
+    the reference's result.  (The name dates from before the detector was
+    ported, when the call raised; `tests/test_torch_racecheck.py` holds the
+    detector itself.)"""
+    rw, racc, ref, port = engines
     assert isinstance(port, ScheduleEngine)
     alloc = _population(rw, racc, 1, seed=2)[0]
-    with pytest.raises(NotImplementedError, match="racecheck"):
-        port.schedule(alloc, validate=True)
+    a = ref.schedule(alloc, validate=True)
+    b = port.schedule(alloc, validate=True)
+    assert (b.latency_cc, b.energy_pj, b.peak_mem_bytes) == (
+        a.latency_cc, a.energy_pj, a.peak_mem_bytes)
+    assert b.mem_events == a.mem_events
+    with pytest.raises(ValueError, match="record=True"):
+        port.schedule(alloc, record=False, validate=True)
 
 
 @pytest.mark.parametrize("arch,seed", [("MC:Hetero", 0), ("MC:Hetero", 1),

@@ -2,8 +2,9 @@
 `jax` nor anything of the JAX package `repro`.  With both blocked, every
 module of the port imports (the scan and expert-GEMM kernels' wrappers and
 the Mamba2, RWKV6 and MoE layers among them), `explore(prefilter=True)`
-runs and a tiny `ServeEngine` serves each family the port runs on the
-CPU."""
+runs, a tiny `ServeEngine` serves each decoder family (M-RoPE and MLA
+among them), a tiny whisper runs `zoo.prefill` and `zoo.decode_step`, and
+`schedule(validate=True)` runs the port's race detector."""
 import ast
 import os
 import subprocess
@@ -36,7 +37,8 @@ from repro_torch.configs import ARCHS, reduce_config
 from repro_torch.models.module import init_from_specs
 from repro_torch.models.zoo import build_param_specs
 from repro_torch.serve.engine import Request, ServeEngine
-for arch in ("llama3.2-3b", "zamba2-2.7b", "rwkv6-3b", "deepseek-moe-16b"):
+for arch in ("llama3.2-3b", "zamba2-2.7b", "rwkv6-3b", "deepseek-moe-16b",
+             "qwen2-vl-72b", "deepseek-v2-236b"):
     cfg = reduce_config(ARCHS[arch], n_layers=2, d_model=64, d_ff=128,
                         vocab=128)
     params = init_from_specs(build_param_specs(cfg), 0, device="cpu")
@@ -45,6 +47,28 @@ for arch in ("llama3.2-3b", "zamba2-2.7b", "rwkv6-3b", "deepseek-moe-16b"):
     reqs = engine.serve([Request(prompt=np.arange(1, 9), max_new_tokens=3)
                          for _ in range(3)])
     assert all(len(r.out_tokens) == 3 for r in reqs), arch
+import torch
+from repro_torch.models import encdec, zoo
+cfg = reduce_config(ARCHS["whisper-large-v3"], n_layers=2, d_model=64,
+                    d_ff=128, vocab=128)
+params = init_from_specs(build_param_specs(cfg), 0, device="cpu")
+caches = init_from_specs(zoo.build_cache_specs(cfg, 2, 12), 0, device="cpu")
+frames = torch.randn(2, cfg.enc["enc_len"], cfg.d_model).to(cfg.dtype)
+batch = {"tokens": torch.ones(2, 8, dtype=torch.long), "enc_embeds": frames}
+logits, caches = zoo.prefill(cfg, params, batch, caches)
+logits, caches = zoo.decode_step(cfg, params, logits.argmax(-1)[:, None],
+                                 caches, 8,
+                                 enc_out=encdec.encode(cfg, params, frames))
+assert bool(torch.isfinite(logits).all())
+from repro_torch.core import ScheduleEngine
+from repro_torch.core.allocator import manual_pingpong
+from repro_torch.configs.paper_workloads import fsrcnn
+from repro_torch.core import CostModel, build_graph
+from repro_torch.hw.catalog import mc_hom_tpu
+w, acc = fsrcnn(), mc_hom_tpu()
+eng = ScheduleEngine(build_graph(w, acc, ("tile", 8, 1)), CostModel(w, acc),
+                     acc)
+assert eng.schedule(manual_pingpong(w, acc), validate=True).latency_cc > 0
 for mod in ("ssd_scan", "rwkv6_scan", "moe_gemm"):
     assert f"repro_torch.kernels.{mod}" in names
 assert sys.modules["jax"] is None and sys.modules["repro"] is None

@@ -94,3 +94,38 @@ def test_mlps(dtype):
                        ("out", (48, 32)), ("out_b", (32,))))}
     _check(layers.gelu_mlp({n: t for n, (_, t) in gelu.items()}, x),
            ref.gelu_mlp({n: j for n, (j, _) in gelu.items()}, jx), dtype)
+
+
+def test_mrope_sections_rotate_independently():
+    """Twin of the reference's test of the same name: three equal streams
+    are plain RoPE (rtol = atol = 1e-5), and a stream of its own changes
+    the result."""
+    B, S, H, D = 1, 8, 2, 32
+    x = torch.as_tensor(normal((B, S, H, D), 0))
+    pos = torch.arange(S)[None].expand(B, S)
+    same = layers.apply_mrope(x, torch.stack([pos, pos, pos]),
+                              sections=(8, 4, 4), theta=1e4)
+    plain = layers.apply_rope(x, pos, theta=1e4)
+    np.testing.assert_allclose(same.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    diff = layers.apply_mrope(x, torch.stack([pos, pos * 2, pos]),
+                              sections=(8, 4, 4), theta=1e4)
+    assert not np.allclose(diff.numpy(), plain.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sections,theta", [((8, 4, 4), 1e4),
+                                            ((4, 6, 6), 1e6)])
+def test_apply_mrope_matches_the_reference(dtype, sections, theta):
+    """Three different position streams (t, h, w), as a vision prompt
+    gives: each section of slots turns by its own stream."""
+    jx, x = _pair(normal((2, 11, 3, 32), 30), dtype)
+    rng = np.random.default_rng(31)
+    pos = np.stack([np.broadcast_to(np.arange(11), (2, 11)),
+                    rng.integers(0, 40, (2, 11)),
+                    rng.integers(0, 40, (2, 11))])
+    got = layers.apply_mrope(x, torch.as_tensor(pos), sections, theta)
+    _check(got, ref.apply_mrope(jx, jnp.asarray(pos, jnp.int32), sections,
+                                theta), dtype)
+    with pytest.raises(ValueError, match="head_dim"):
+        layers.apply_mrope(x, torch.as_tensor(pos), (8, 8, 8), theta)

@@ -237,7 +237,8 @@ def _reference_serve(rc, rparams, prompts, slots, max_new):
 
 
 @pytest.mark.parametrize("name", ["zamba2-2.7b", "rwkv6-3b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b", "qwen2-vl-72b",
+                                  "deepseek-v2-236b"])
 def test_serve_matches_the_reference_engine_over_two_waves(name):
     # float32: in bfloat16 the reduced models' top-1 margins fall mostly
     # inside the deep stacks' near-tie limit of 0.1 (20 of rwkv6's 24
