@@ -33,9 +33,32 @@ non-zero and prints no `ok` line:
              its plain version, timed beside the step route's scan;
 5. explore — Stream's explore(prefilter=True) on the card, the DSE main
              path, with every launch count set to 0 just before it: one
-             wavefront_scan launch a prefilter chunk, no other kernel;
+             wavefront_scan launch a prefilter chunk, no other kernel, and
+             each chunk scored again through the plain loop, bit-equal;
    validate — the final schedule again with validate=True (the port's
              race detector), and the detector's report;
+   sweep   — the DSE runtime (`repro_torch.api`): the paper's Figs. 13-15
+             grid (5 workloads x 7 architectures x layer and tile 32, pop
+             10, 6 generations, 70 points) through a prefiltered, traced,
+             serial `ExplorationSession.run` into a store on disk, every
+             launch count set to 0 just before it: one wavefront_scan
+             launch a prefilter chunk, no other kernel, every record equal
+             to the exact engine's schedule of its allocation; each chunk
+             the sweep gave wavefront_scan scored again through the plain
+             PyTorch loop (bit-equal), and the whole grid again with the
+             prefilter on that loop (every record and tracer counter
+             equal); the paper's
+             per-architecture geomean EDP gain; a fresh session over the
+             same store (70 store hits, 0 scheduled, 0 launches); the
+             28-point space of examples/distributed_sweep.py through the
+             spawn-based process executor from this process, which holds
+             a CUDA context, plain and under a seeded schedule of worker
+             kills and straggler deadlines, and through 2 shards
+             (`run_shard`, `merge_stores`), each equal to the serial
+             unfiltered run; a Chrome trace of the best fused record's
+             schedule, checked, and its bottleneck report;
+   simulate — `repro_torch.launch.serve --simulate` for the transformer,
+             rwkv and ssm serving families, twice each, equal both times;
 6. serve   — llama3.2-3b, zamba2-2.7b, rwkv6-3b, deepseek-moe-16b,
              qwen2-vl-72b (16 of 80 layers) and deepseek-v2-236b (4 of 60),
              one after another, each at full width (seeded random weights
@@ -62,11 +85,14 @@ last `{"ok": true, "device": {...}}`.  Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -135,6 +161,16 @@ WHISPER_NEW = 16
 # 0.0394, with logits up to 2.9 in magnitude. Its gate is the float32 check
 # at full depth (whisper_phase).
 WHISPER_TOL = {"prefill": 0.04, "decode": 0.04, "uncached": 0.08}
+# The sweep phase: benchmarks/bench_exploration.py's quick grid (the paper's
+# Figs. 13-15: 5 workloads x 7 architectures x layer-by-layer and 32-band
+# layer fusion, GA pop 10, 6 generations, seed 0), and the 28-point space of
+# examples/distributed_sweep.py (squeezenet and fsrcnn, pop 8, 5 generations)
+# for the process executor and the shards.
+SWEEP_GA = dict(pop_size=10, generations=6, seed=0)
+SWEEP_POINTS = 70
+DIST_GA = dict(pop_size=8, generations=5)
+DIST_WORKLOADS = ("squeezenet", "fsrcnn")
+FAMILIES = ("transformer", "rwkv", "ssm")
 # the middle of a wave's decode steps of llama3.2-3b, which attend over
 # 129..159 positions
 SERVE_CUR = PROMPT + SERVED["llama3.2-3b"][0] // 2
@@ -1562,6 +1598,318 @@ def zoo_caches(zoo, cfg, dev):
                            device=dev)
 
 
+@contextlib.contextmanager
+def counted_chunks():
+    """Keep the prefilter chunks `BatchedFitness` scores (one wavefront_scan
+    launch each on the fused route) while the block runs: yields a list that
+    gains `(fitness, genomes, latency, energy)` for each chunk."""
+    from repro_torch.core.vectorized import BatchedFitness
+    chunks = []
+    score = BatchedFitness._score
+
+    def counted(self, genomes):
+        lat, en = score(self, genomes)
+        chunks.append((self, genomes, lat, en))
+        return lat, en
+
+    BatchedFitness._score = counted
+    try:
+        yield chunks
+    finally:
+        BatchedFitness._score = score
+
+
+@contextlib.contextmanager
+def plain_prefilter():
+    """Every prefilter fitness built while the block runs scores through
+    the plain PyTorch loop (`use_kernel=False`) on the same device."""
+    from repro_torch.core import vectorized
+    build = vectorized.get_batched_fitness
+    vectorized.get_batched_fitness = functools.partial(build, use_kernel=False)
+    try:
+        yield
+    finally:
+        vectorized.get_batched_fitness = build
+
+
+def hold_chunks_against_plain(chunks, counters) -> dict:
+    """Score each chunk the sweep gave `wavefront_scan` again through the
+    plain PyTorch loop of the same fitness (`use_kernel=False`, same device,
+    same contention model): latency and energy must be bit-equal, as the
+    fitness phase finds at its 256-genome chunk.  Launches no kernel."""
+    import torch
+
+    from repro_torch.core.vectorized import get_batched_fitness
+    before = {name: fn.launches for name, fn in counters.items()}
+    max_abs, shapes = 0.0, set()
+    for bf, genomes, lat, en in chunks:
+        assert bf.route == "fused", bf.route
+        plain = get_batched_fitness(
+            bf.engine, priority=bf.priority, segment=bf.segment,
+            strict_layers=bf.strict_layers, use_kernel=False,
+            contention=bf.contention, device=bf.device)
+        assert plain.route == "plain", plain.route
+        p_lat, p_en = plain._score(genomes)
+        for got, want in ((lat, p_lat), (en, p_en)):
+            max_abs = max(max_abs, float((got - want).abs().max()))
+            assert torch.equal(got, want), (bf.engine.graph.n, got, want)
+        shapes.add(tuple(genomes.shape))
+    assert {n: fn.launches for n, fn in counters.items()} == before
+    return {"chunks": len(chunks), "shapes": sorted(shapes),
+            "max_abs_err": max_abs, "bit_equal": True}
+
+
+def record_content(record) -> dict:
+    """A sweep record's stored fields but `runtime_s` (wall time)."""
+    d = record.to_dict()
+    d.pop("runtime_s")
+    return d
+
+
+def sweep_phase(counters, work_dir) -> tuple:
+    """The paper's exploration grid through the port's DSE runtime on the
+    card: prefiltered, traced, serial, into a store on disk; then a fresh
+    session over the same store.  Returns the phase's line, the session
+    and the space (the Chrome trace reads the best fused record's
+    schedule from them)."""
+    import torch
+
+    from repro_torch.api import (DesignSpace, ExplorationSession, GAConfig,
+                                 granularity_label)
+    from repro_torch.configs.paper_workloads import EXPLORATION_WORKLOADS
+    from repro_torch.hw.catalog import EXPLORATION_ARCHITECTURES
+    from repro_torch.obs import Tracer
+
+    space = DesignSpace(workloads=EXPLORATION_WORKLOADS,
+                        archs=EXPLORATION_ARCHITECTURES,
+                        granularities=["layer", GRAN],
+                        ga=GAConfig(**SWEEP_GA))
+    assert len(space) == SWEEP_POINTS, space
+    store = os.path.join(work_dir, "grid")
+    tracer = Tracer()
+    session = ExplorationSession(cache_dir=store, prefilter=True,
+                                 tracer=tracer)
+    with counted_chunks() as chunks:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep = session.run(space)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    counts = tracer.snapshot()["counters"]
+    assert len(sweep) == SWEEP_POINTS and sweep.n_failed == 0, sweep
+    assert sweep.n_scheduled == SWEEP_POINTS, sweep.n_scheduled
+    assert launches["wavefront_scan"] == len(chunks) > 0, (launches,
+                                                           len(chunks))
+    assert all(n == 0 for name, n in launches.items()
+               if name != "wavefront_scan"), launches
+    # the kernel against its plain version at every chunk the sweep gave it
+    chunk_check = hold_chunks_against_plain(chunks, counters)
+    del chunks
+
+    # the same grid with the prefilter on the plain loop, into a store of
+    # its own: every record and every tracer counter as the kernel's run
+    plain_tracer = Tracer()
+    t0 = time.perf_counter()
+    with plain_prefilter():
+        plain = ExplorationSession(cache_dir=os.path.join(work_dir, "plain"),
+                                   prefilter=True, tracer=plain_tracer
+                                   ).run(space)
+    plain_wall = time.perf_counter() - t0
+    assert sum(fn.launches for fn in counters.values()) == sum(
+        launches.values())
+    assert [record_content(r) for r in plain.records] == \
+        [record_content(r) for r in sweep.records]
+    assert plain_tracer.snapshot()["counters"] == counts, (
+        plain_tracer.snapshot()["counters"], counts)
+    # every stored metric comes from the exact engine
+    for point, rec in zip(space, sweep.records):
+        assert rec.key == point.content_key()
+        exact = session.evaluate_allocation(
+            point.workload, point.arch, rec.allocation,
+            granularity=point.granularity, priority=point.priority)
+        assert (rec.latency_cc, rec.energy_pj) == (
+            float(exact.latency_cc), float(exact.energy_pj)), rec
+        assert np.isfinite(rec.edp) and rec.edp > 0
+    fused = granularity_label(GRAN)
+    by_cell = {(r.arch, r.workload, r.granularity): r for r in sweep.records}
+    gains = {}
+    for arch in EXPLORATION_ARCHITECTURES:
+        ratios = [by_cell[(arch, w, "layer")].edp / by_cell[(arch, w, fused)].edp
+                  for w in EXPLORATION_WORKLOADS]
+        gains[arch] = float(np.exp(np.mean(np.log(ratios))))
+
+    # a fresh session over the same store: nothing scheduled, no launch
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    replay = ExplorationSession(cache_dir=store, prefilter=True).run(space)
+    replay_wall = time.perf_counter() - t0
+    replay_launches = sum(fn.launches for fn in counters.values())
+    assert (replay.n_from_store, replay.n_scheduled, replay_launches) == (
+        SWEEP_POINTS, 0, 0), (replay.n_from_store, replay.n_scheduled,
+                              replay_launches)
+    assert [record_content(r) for r in replay.records] == \
+        [record_content(r) for r in sweep.records]
+
+    # the grid once more under the profiler, in a memory-only session: the
+    # card's busy time beside the sweep's wall time
+    wall_ms, rows = device_times(
+        lambda: ExplorationSession(prefilter=True).run(space))
+    kernels = [r for r in rows if not r[1].startswith("aten::")]
+    busy = sum(r[0] for r in kernels) / 1e3
+    scan = [(us, c) for us, k, c in kernels if "wavefront_scan" in k]
+    profile = {"wall_ms": wall_ms, "device_busy_ms": busy,
+               "device_idle_share": 1 - busy / wall_ms,
+               "kernel_launches": sum(r[2] for r in kernels),
+               "wavefront_scan_device_ms": sum(us for us, _ in scan) / 1e3,
+               "wavefront_scan_launches": sum(c for _, c in scan),
+               "top": [{"name": k[:90], "device_ms": us / 1e3, "count": c}
+                       for us, k, c in kernels[:6]]}
+    return {"phase": "sweep", "points": len(sweep),
+            "grid": {"workloads": list(EXPLORATION_WORKLOADS),
+                     "archs": list(EXPLORATION_ARCHITECTURES),
+                     "granularities": ["layer", fused], **SWEEP_GA},
+            "wall_s": wall, "points_per_s": len(sweep) / wall,
+            "launches": launches["wavefront_scan"],
+            "prefilter_chunks": chunk_check["chunks"],
+            "chunks_vs_plain": chunk_check,
+            "plain_sweep": {"wall_s": plain_wall, "records_equal": True,
+                            "counters_equal": True},
+            "points_with_ga": sum(1 for r in sweep.records
+                                  if r.ga_evaluations),
+            "ga_evaluations": sum(r.ga_evaluations for r in sweep.records),
+            "geomean_edp_gain_layer_over_fused": gains,
+            "tracer_counters": counts,
+            "replay": {"wall_s": replay_wall,
+                       "from_store": replay.n_from_store,
+                       "scheduled": replay.n_scheduled,
+                       "launches": replay_launches},
+            "profile": profile,
+            "best_fused": min((r for r in sweep.records
+                               if r.granularity == fused),
+                              key=lambda r: r.edp).key}, session, space
+
+
+def distributed_phase(work_dir, grid_session, grid_space, best_key) -> dict:
+    """examples/distributed_sweep.py's space through the process executor
+    (spawned workers beside this CUDA-holding process), under a seeded
+    fault schedule, and through 2 shards; then a Chrome trace of the best
+    fused record of the grid."""
+    from repro_torch.analysis.staticcheck.racecheck import validate_trace
+    from repro_torch.api import (DesignSpace, ExplorationSession,
+                                 FaultInjector, GAConfig, RetryPolicy,
+                                 build_manifest, merge_stores, run_shard)
+    from repro_torch.core.vectorized import get_batched_fitness
+    from repro_torch.hw.catalog import EXPLORATION_ARCHITECTURES
+    from repro_torch.obs import (bottleneck_report, trace_schedule,
+                                 validate_trace_events, write_chrome_trace)
+
+    space = DesignSpace(workloads=list(DIST_WORKLOADS),
+                        archs=EXPLORATION_ARCHITECTURES,
+                        granularities=["layer", GRAN],
+                        ga=GAConfig(**DIST_GA))
+    t0 = time.perf_counter()
+    serial = ExplorationSession().run(space)
+    serial_wall = time.perf_counter() - t0
+    want = [record_content(r) for r in serial.records]
+    assert len(want) == 28 and serial.n_failed == 0
+
+    t0 = time.perf_counter()
+    pooled = ExplorationSession().run(space, executor="process",
+                                      max_workers=2)
+    pooled_wall = time.perf_counter() - t0
+    assert pooled.n_failed == 0
+    assert [record_content(r) for r in pooled.records] == want
+
+    # worker kills on 4 points (the pool rebuilt), and one straggler whose
+    # first attempt sleeps far past the deadline (re-dispatched; 5 s leave
+    # a fresh spawned worker the time to import and compute the point)
+    faults = {}
+    for name, n, inj, deadline in (
+            ("kills", 4, FaultInjector(seed=3, kill_rate=1.0,
+                                       max_faults_per_point=1), None),
+            ("deadline", 1, FaultInjector(seed=0, delay_rate=1.0,
+                                          delay_s=20.0,
+                                          max_faults_per_point=1), 5.0)):
+        t0 = time.perf_counter()
+        got = ExplorationSession(retry_policy=RetryPolicy(max_attempts=3),
+                                 fault_injector=inj, deadline_s=deadline
+                                 ).run(list(space)[:n], executor="process",
+                                       max_workers=2)
+        faults[name] = {"points": n, "wall_s": time.perf_counter() - t0,
+                        "retried": got.n_retried, "failed": got.n_failed}
+        assert got.n_failed == 0 and got.n_retried >= 1, faults
+        assert faults[name]["wall_s"] < 20.0, faults
+        assert [record_content(r) for r in got.records] == want[:n]
+
+    manifest = build_manifest(space, order="nearest-arch").save(
+        os.path.join(work_dir, "sweep.json"))
+    t0 = time.perf_counter()
+    shards = [os.path.join(work_dir, f"shard{k}") for k in range(2)]
+    for k, d in enumerate(shards):
+        assert run_shard(manifest, cache_dir=d, shard=(k, 2)).n_failed == 0
+    merged = merge_stores(os.path.join(work_dir, "merged"), *shards)
+    shard_wall = time.perf_counter() - t0
+    by_key = {r.key: record_content(r) for r in merged.values()}
+    assert len(by_key) == len(want)
+    assert [by_key[r["key"]] for r in want] == want
+
+    # the best fused record of the grid: its schedule traced and checked
+    point = next(p for p in grid_space if p.content_key() == best_key)
+    rec = grid_session.store.get(best_key)
+    engine = grid_session.engine(point.workload, point.arch,
+                                 point.granularity)
+    events, result = trace_schedule(engine, rec.allocation, rec.priority)
+    assert (result.latency_cc, result.energy_pj) == (rec.latency_cc,
+                                                     rec.energy_pj)
+    assert validate_trace_events(events) == []
+    race = validate_trace(result, engine.graph, engine.accelerator,
+                          point.workload)
+    path = write_chrome_trace(events, os.path.join(work_dir, "best.json"))
+    bf = get_batched_fitness(engine, priority=rec.priority)
+    lb = float(bf.latency_lower_bound(np.asarray(rec.allocation)[None, :])[0])
+    report = bottleneck_report(result, lower_bound_cc=lb)
+    return {"phase": "distributed", "points": len(want),
+            "serial_wall_s": serial_wall,
+            "process": {"workers": 2, "wall_s": pooled_wall},
+            "faults": faults,
+            "shards": {"n": 2, "wall_s": shard_wall, "merged": len(by_key)},
+            "trace": {"workload": point.workload_name,
+                      "arch": point.arch.name, "events": len(events),
+                      "bytes": os.path.getsize(path), "racecheck": race},
+            "bottleneck": report.to_dict()}
+
+
+def simulate_phase() -> dict:
+    """The serving simulator's CLI for each family, twice: equal both times."""
+    import io
+
+    from repro_torch.launch.serve import main as serve_main
+
+    out = {}
+    for family in FAMILIES:
+        runs = []
+        t0 = time.perf_counter()
+        for _ in range(2):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                sweep = serve_main(["--simulate", "--family", family])
+            runs.append((buf.getvalue(),
+                         [r.to_dict() for r in sweep.records]))
+        assert runs[0] == runs[1], family
+        rec = sweep.records[0]
+        assert len(sweep.records) == 1 and rec.qps > 0, sweep.records
+        out[family] = {"p50_ms": rec.p50_ms, "p99_ms": rec.p99_ms,
+                       "qps": rec.qps, "rate_rps": rec.rate_rps,
+                       "slo_attainment": rec.slo_attainment,
+                       "energy_per_request_pj": rec.energy_per_request_pj,
+                       "wall_s": (time.perf_counter() - t0) / 2}
+    return {"phase": "simulate", "families": out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1571,7 +1919,6 @@ def main() -> int:
     from repro_torch.api.session import default_session
     from repro_torch.configs.paper_workloads import resnet18, squeezenet
     from repro_torch.core import explore
-    from repro_torch.core.vectorized import BatchedFitness
     from repro_torch.hw.catalog import mc_hetero, mc_hom_tpu_chip4
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import decode_attention_fwd
@@ -1672,15 +2019,7 @@ def main() -> int:
                 "flash_attention": flash_attention_fwd,
                 "ssd_scan": ssd_scan, "rwkv6_scan": rwkv6_scan,
                 "moe_gemm": moe_gemm}
-    chunks = [0]            # prefilter chunks scored, each one scan launch
-    score = BatchedFitness._score
-
-    def counted(self, genomes):
-        chunks[0] += 1
-        return score(self, genomes)
-
-    BatchedFitness._score = counted
-    try:
+    with counted_chunks() as chunks:
         for fn in counters.values():
             fn.launches = 0
         torch.cuda.synchronize()
@@ -1688,13 +2027,13 @@ def main() -> int:
         res = explore(w, acc, prefilter=True, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        BatchedFitness._score = score
     launches = wavefront_scan.launches
     assert res.ga.prefilter_screened > 0, res.ga
-    assert launches == chunks[0] > 0, (launches, chunks[0])
+    assert launches == len(chunks) > 0, (launches, len(chunks))
     assert all(fn.launches == 0 for name, fn in counters.items()
                if name != "wavefront_scan")
+    chunk_check = hold_chunks_against_plain(chunks, counters)
+    del chunks
     final = session.engine(w, acc, GRAN).schedule(res.allocation, "latency")
     assert (res.latency_cc, res.energy_pj) == (final.latency_cc,
                                               final.energy_pj)
@@ -1705,7 +2044,8 @@ def main() -> int:
     emit({"phase": "explore", "workload": w.name, "arch": acc.name,
           "granularity": list(GRAN), "wall_s": wall,
           "unfiltered_wall_s": wall_base, "launches": launches,
-          "prefilter_chunks": chunks[0],
+          "prefilter_chunks": chunk_check["chunks"],
+          "chunks_vs_plain": chunk_check,
           "serialize_prefix_launches": serialize_prefix.launches,
           "prefilter_screened": res.ga.prefilter_screened,
           "prefilter_pruned": res.ga.prefilter_pruned,
@@ -1739,6 +2079,14 @@ def main() -> int:
     emit({"phase": "validate", "workload": w.name, "arch": acc.name,
           "schedule_validate_s": validate_s, "report": reports[0]})
 
+    # ---- the DSE runtime: the paper's grid, stores, executors, shards ----
+    with tempfile.TemporaryDirectory() as work_dir:
+        swept, grid_session, grid_space = sweep_phase(counters, work_dir)
+        emit(swept)
+        emit(distributed_phase(work_dir, grid_session, grid_space,
+                               swept["best_fused"]))
+    emit(simulate_phase())
+
     # ---- the serving main paths: each model through ServeEngine.serve ----
     served = {}
     for arch in SERVED:
@@ -1754,9 +2102,9 @@ def main() -> int:
         "name": "wavefront_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wavefront.cu",
         "replaces": "src/repro/kernels/wavefront.py:37",
-        "paths": ["fitness", "explore"], "launches": launches,
+        "paths": ["fitness", "explore", "sweep"], "launches": launches,
         "launches_by_path": {
-            "explore": launches,
+            "explore": launches, "sweep": swept["launches"],
             **{f"fitness {f['workload']} x {f['arch']}":
                f["launches"]["fused"]["wavefront_scan"] for f in fitness}},
         "max_abs_err": max(f["scan"]["max_abs_err"] for f in fitness),

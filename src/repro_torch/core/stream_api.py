@@ -7,13 +7,13 @@ runs Steps 1-5: CN identification (HW-dataflow-aware minimum tiles), R-tree
 dependency generation, intra-core cost extraction, GA layer-core allocation
 (NSGA-II on [latency, energy]), and prioritized multi-core scheduling.
 
-This module is the *single-point* surface of the PyTorch port.  The
-functions here delegate to a shared default `ExplorationSession`
-(`repro_torch.api.session`), which owns the graph/engine caches.  The
-sweep-native API of the JAX package (`ArchSpec`, `DesignSpace`, executors, the
-result store, `explore_granularity`) is not ported yet.  `device` names where
-the GA prefilter's batched fitness runs: None means CUDA, and a machine
-without CUDA raises instead of falling back to the CPU.
+This module is the *single-point* compatibility surface.  The sweep-native
+API — `ArchSpec`, `DesignSpace`, `ExplorationSession` with parallel
+executors and a persistent result store — lives in `repro_torch.api`; the
+functions here delegate to a shared default `ExplorationSession`, which owns
+the graph/engine caches.  `device` names where the GA prefilter's batched
+fitness runs: None means CUDA, and a machine without CUDA raises instead of
+falling back to the CPU.
 """
 from __future__ import annotations
 
@@ -198,3 +198,24 @@ def explore(
         seed=seed, initial_allocations=initial_allocations,
         prefilter=prefilter, device=device)
 
+
+def explore_granularity(
+    workload: Workload,
+    accelerator: Accelerator,
+    granularities=None,   # default: repro_torch.api.session.DEFAULT_GRANULARITIES
+    objective: str = "edp",
+    **kw,
+) -> dict:
+    """Co-explore scheduling granularity with allocation (paper Sec. V
+    summary: "quantitatively and automatically co-explore the optimal
+    scheduling granularity"). Returns {granularity: StreamResult} plus the
+    objective-best key under 'best' — legacy shape; prefer
+    `ExplorationSession.explore_granularity`, which returns a typed
+    `GranularitySweep` instead of mixing the winner into the results dict."""
+    kw = dict(kw, objective=objective)
+    if granularities is not None:
+        kw["granularities"] = granularities
+    sweep = _session().explore_granularity(workload, accelerator, **kw)
+    results: dict = dict(sweep.results)
+    results["best"] = sweep.best_label
+    return results

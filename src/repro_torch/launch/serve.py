@@ -7,8 +7,17 @@ with the flags of the JAX package's `repro/launch/serve.py` plus `--device`:
 As in the reference, `--smoke` defaults to on (`action="store_true",
 default=True`), so the CLI always serves the reduced config; a full-width
 model is served through `ServeEngine` directly (see `chip_smoke.py`).
-`--simulate`, the analytic closed loop, is ROADMAP queue 1, item 4, and
-`--production-mesh` item 13: both raise until then.
+`--production-mesh` (a multi-device mesh) raises: ROADMAP queue 1, item 13.
+
+`--simulate` swaps the token engine for the analytic closed loop
+(`repro_torch.serve.simulator`): phase costs are scheduled through an
+`ExplorationSession` for a serving workload family on a catalog
+accelerator, then a seeded Poisson stream is replayed against them.  Both
+modes share the `SlotBatcher` admission policy; the analytic mode never
+imports torch.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --simulate \
+      --family transformer --hw-arch mc_hom_tpu --rate 1000 --requests 16
 """
 from __future__ import annotations
 
@@ -47,6 +56,31 @@ def _run_engine(args):
     return reqs
 
 
+def _run_simulator(args):
+    from repro_torch.api.designspace import DesignSpace, GAConfig, ServingSweep
+    from repro_torch.api.session import ExplorationSession
+    from repro_torch.hw import catalog
+    from repro_torch.serve.workloads import serving_workload
+
+    arch = getattr(catalog, args.hw_arch)
+    space = DesignSpace(
+        workloads={args.family: serving_workload(args.family)},
+        archs={args.hw_arch: arch}, granularities=["layer"],
+        ga=GAConfig(pop_size=8, generations=4),
+        serving=ServingSweep(rates_rps=tuple(args.rate),
+                             slo_ms=(args.slo_ms,),
+                             batch_slots=args.batch_slots,
+                             n_requests=args.requests,
+                             decode_tokens=args.max_new))
+    sweep = ExplorationSession().run_serving(space)
+    for r in sweep.curve(args.family, args.hw_arch):
+        print(f"rate {r.rate_rps:>10.1f} rps | p50 {r.p50_ms:8.4f} ms | "
+              f"p99 {r.p99_ms:8.4f} ms | qps {r.qps:10.1f} | "
+              f"SLO@{r.slo_ms:g}ms {r.slo_attainment:.2f} | "
+              f"{r.energy_per_request_pj:.3e} pJ/req")
+    return sweep
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-3b")
@@ -60,15 +94,24 @@ def main(argv=None):
     ap.add_argument("--simulate", action="store_true",
                     help="analytic closed-loop simulator instead of the "
                          "token engine")
+    ap.add_argument("--family", default="transformer",
+                    choices=["transformer", "rwkv", "ssm"],
+                    help="serving workload family (--simulate)")
+    ap.add_argument("--hw-arch", default="mc_hom_tpu",
+                    help="repro_torch.hw.catalog accelerator name (--simulate)")
+    ap.add_argument("--rate", type=float, action="append", default=None,
+                    help="arrival rate(s) in req/s (--simulate, repeatable)")
+    ap.add_argument("--slo-ms", type=float, default=50.0,
+                    help="latency SLO in ms (--simulate)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
     args = ap.parse_args(argv)
     if args.batch_slots is None:
         args.batch_slots = args.requests
+    if args.rate is None:
+        args.rate = [1000.0]
     if args.simulate:
-        raise NotImplementedError(
-            "--simulate (the analytic serving simulator) is not ported yet: "
-            "ROADMAP queue 1, item 4")
+        return _run_simulator(args)
     if args.production_mesh:
         raise NotImplementedError(
             "--production-mesh (a multi-device mesh) is not ported yet: "

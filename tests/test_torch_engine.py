@@ -133,10 +133,9 @@ def test_schedule_and_reference_scheduler_equal(engines):
     assert (pb.latency_cc, pb.energy_pj) == (ra.latency_cc, ra.energy_pj)
 
 
-def test_validate_raises_until_racecheck_is_ported(engines):
+def test_validate_runs_the_race_detector(engines):
     """`schedule(validate=True)` runs the port's race detector and returns
-    the reference's result.  (The name dates from before the detector was
-    ported, when the call raised; `tests/test_torch_racecheck.py` holds the
+    the reference's result.  (`tests/test_torch_racecheck.py` holds the
     detector itself.)"""
     rw, racc, ref, port = engines
     assert isinstance(port, ScheduleEngine)

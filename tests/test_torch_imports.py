@@ -3,8 +3,11 @@
 module of the port imports (the scan and expert-GEMM kernels' wrappers and
 the Mamba2, RWKV6 and MoE layers among them), `explore(prefilter=True)`
 runs, a tiny `ServeEngine` serves each decoder family (M-RoPE and MLA
-among them), a tiny whisper runs `zoo.prefill` and `zoo.decode_step`, and
-`schedule(validate=True)` runs the port's race detector."""
+among them), a tiny whisper runs `zoo.prefill` and `zoo.decode_step`,
+`schedule(validate=True)` runs the port's race detector, and the DSE
+runtime (`repro_torch.api`, `repro_torch.obs`, `repro_torch.serve.
+simulator`) runs a small traced serial sweep.  `import repro_torch.api.
+session` loads no torch, so a spawned sweep worker does not pay for it."""
 import ast
 import os
 import subprocess
@@ -71,6 +74,17 @@ eng = ScheduleEngine(build_graph(w, acc, ("tile", 8, 1)), CostModel(w, acc),
 assert eng.schedule(manual_pingpong(w, acc), validate=True).latency_cc > 0
 for mod in ("ssd_scan", "rwkv6_scan", "moe_gemm"):
     assert f"repro_torch.kernels.{mod}" in names
+import repro_torch.api, repro_torch.obs, repro_torch.serve.simulator
+from repro_torch.api import DesignSpace, ExplorationSession, GAConfig
+from repro_torch.obs import Tracer
+from repro_torch.hw.catalog import sc_tpu
+tracer = Tracer()
+sweep = ExplorationSession(tracer=tracer).run(DesignSpace(
+    workloads=["fsrcnn"], archs={"SC:TPU": sc_tpu, "MC:HomTPU": mc_hom_tpu},
+    granularities=["layer", ("tile", 8, 1)],
+    ga=GAConfig(pop_size=4, generations=2)))
+assert len(sweep) == sweep.n_scheduled == 4 and sweep.n_failed == 0
+assert tracer.snapshot()["counters"]["sweep.computed"] == 4
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 print(len(names), "modules")
 """
@@ -112,3 +126,15 @@ def test_port_runs_with_jax_and_repro_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "modules" in out.stdout
+
+
+def test_sweep_runtime_imports_no_torch():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys; import repro_torch.api.session, repro_torch.api, "
+            "repro_torch.obs, repro_torch.serve, repro_torch.launch.serve; "
+            "print(sorted(m for m in ('torch', 'jax', 'repro') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
