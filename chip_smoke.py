@@ -78,7 +78,22 @@ non-zero and prints no `ok` line:
              encode + decode_stack forward both ways (the pass in which
              cross attention reads the encoder output), a profiled
              prefill and decode step, and the float32 gate at full depth
-             over the cached and the uncached passes.
+             over the cached and the uncached passes;
+7. train   — llama3.2-3b training at full width and depth (bf16, remat,
+             seeded random weights, TokenStream's synthetic data) through
+             `repro_torch.launch.train.main` (8 steps, B 8 x S 1024), with
+             every launch count set to 0 just before it: the training path
+             runs the plain layers, so every count must still be 0 after
+             it; then 6 steps timed by CUDA events (step ms, tokens/s, MFU
+             against 989 TFLOP/s, peak memory), one profiled step (device
+             busy ms, idle share, launches, the largest kernels and aten
+             ops), 8 steps on one repeated batch at a constant 3e-5 (the
+             loss must fall by LEARN_DROP), one step with int8 gradient
+             compression (ef finite);
+   train_float32 — the same model at 2 layers in float32, TF32 off: one
+             step on the card against the CPU, microbatches 2 against 1
+             and remat against none on the card, and a blocking and an
+             async checkpoint round trip where zstandard imports.
 
 Then a line `{"kernels": [...]}`, the `nvidia-smi` name and power limit, and
 last `{"ok": true, "device": {...}}`.  Exits non-zero without CUDA.
@@ -174,6 +189,32 @@ FAMILIES = ("transformer", "rwkv", "ssm")
 # the middle of a wave's decode steps of llama3.2-3b, which attend over
 # 129..159 positions
 SERVE_CUR = PROMPT + SERVED["llama3.2-3b"][0] // 2
+# The training main path: `python -m repro_torch.launch.train` at the full
+# width and depth of llama3.2-3b (bf16, remat, seeded random weights,
+# TokenStream's synthetic data), then the same model for TRAIN_TIMED more
+# steps timed by CUDA events (the first is a warm-up) and one profiled step.
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_B, TRAIN_S = 8, 1024
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "8", "--batch", str(TRAIN_B),
+              "--seq", str(TRAIN_S), "--device", "cuda"]
+TRAIN_TIMED = 6
+# The learning gate: LEARN_STEPS steps on one repeated batch at full width,
+# continuing the timed steps' parameters and optimizer state at a constant
+# learning rate LEARN_LR (no warmup, no decay); the last loss must lie
+# LEARN_DROP nats below the first. At launch.train's 1.5e-4 to 3e-4 the
+# loss on one batch overshoots and climbs for two steps before it falls;
+# at 3e-5 it fell by 0.91 nats in 8 steps on an H100 80GB HBM3 at 700 W,
+# so the margin is about half that (PERF.md, "Training").
+LEARN_STEPS = 8
+LEARN_LR = 3e-5
+LEARN_DROP = 0.5
+# The float32 gate: llama3.2-3b at full width, 2 layers, float32, TF32 off:
+# one train step on the card against the same step on the CPU (1e-4 of each
+# tensor's largest magnitude), microbatches 2 against 1 (1e-5) and remat
+# against none (1e-6) on the card; the parameters beyond what their held
+# moments explain (`train_rel_diff`).
+TRAIN_F32 = {"depth": 2, "batch": 1, "seq": 128, "cpu_tol": 1e-4,
+             "microbatch_tol": 1e-5, "remat_tol": 1e-6}
 KERNEL_SHAPES = [(1, 1), (5, 7), (1280, 17), (2048, 28), (40, 33), (300, 257),
                  (160, 17), (32, 17)]
 TIMED_SHAPES = [(1280, 17), (2048, 28)]
@@ -1910,6 +1951,311 @@ def simulate_phase() -> dict:
     return {"phase": "simulate", "families": out}
 
 
+def train_step_fn(cfg, steps: int = 8, opt: dict | None = None, **kw):
+    """A train step with the configuration `launch.train` builds for
+    `steps` steps at its default learning rate, or with the AdamW fields
+    `opt`; `kw` sets the rest."""
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainStepConfig, make_train_step
+    opt = opt or dict(total_steps=steps, warmup_steps=min(20, steps // 5))
+    return make_train_step(cfg, TrainStepConfig(opt=AdamWConfig(**opt),
+                                                **kw))
+
+
+def train_state(cfg, params, steps: int = 8, **kw):
+    """`train_step_fn` and a fresh optimizer state for `params`."""
+    from repro_torch.train.train_step import TrainStepConfig, init_train_state
+    return train_step_fn(cfg, steps, **kw), init_train_state(
+        cfg, params, TrainStepConfig(**kw))
+
+
+def token_batch(cfg, step: int, batch: int, seq: int, dev) -> dict:
+    """TokenStream's synthetic batch of `step` on the device."""
+    import torch
+    from repro_torch.train.data import DataConfig, TokenStream
+    data = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch))
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in data.global_batch(step).items()}
+
+
+def op_profile(fn, top: int = 12) -> list:
+    """`fn` under the profiler: the aten ops that launched the most device
+    time (self device ms and calls), largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(ev.self_device_time_total, ev.key, ev.count)
+            for ev in prof.key_averages()
+            if ev.key.startswith("aten::")
+            and getattr(ev, "self_device_time_total", 0) > 0]
+    rows.sort(reverse=True)
+    return [{"op": k, "device_ms": us / 1e3, "calls": c}
+            for us, k, c in rows[:top]]
+
+
+def rel_diff(got, want) -> float:
+    """Largest difference relative to the largest magnitude of `want`."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def train_rel_diff(a, b, lr: float, b1: float = 0.9,
+                   eps: float = 1e-8) -> dict:
+    """Two first-step (params, state, metrics) results against each other:
+    loss, grad norm and lr, m and v relative to each tensor's largest
+    magnitude, and the parameters beyond what their m already explains.
+    A first AdamW step moves a parameter by lr (u + wd p) with u = h /
+    (|h| + eps), h = m / (1 - b1) the clipped gradient: a near-zero h can
+    turn u over (float32 sums in another order), so the parameters are
+    held to lr |u_a - u_b| (from the held m) plus a tolerance relative to
+    their largest magnitude; `params` is that excess."""
+    from repro_torch.models.module import tree_leaves
+    (pa, sa, ma), (pb, sb, mb) = a, b
+    out = {k: rel_diff(ma[k], mb[k]) for k in ("loss", "grad_norm", "lr")}
+    for name in ("m", "v"):
+        out[name] = max(rel_diff(u, w) for u, w in
+                        zip(tree_leaves(sa[name]), tree_leaves(sb[name])))
+    excess, raw = 0.0, 0.0
+    for x, y, m_a, m_b in zip(tree_leaves(pa), tree_leaves(pb),
+                              tree_leaves(sa["m"]), tree_leaves(sb["m"])):
+        h_a, h_b = m_a.cpu() / (1 - b1), m_b.cpu() / (1 - b1)
+        turn = (h_a / (h_a.abs() + eps) - h_b / (h_b.abs() + eps)).abs()
+        diff = (x.float().cpu() - y.float().cpu()).abs()
+        top = float(y.abs().max())
+        raw = max(raw, float(diff.max()) / top)
+        excess = max(excess, float((diff - lr * turn).max()) / top)
+    out["params"] = excess
+    out["params_raw"] = raw
+    return out
+
+
+def train_gate(diffs: dict, tol: float) -> None:
+    assert max(v for k, v in diffs.items() if k != "params_raw") <= tol, \
+        (diffs, tol)
+
+
+def train_float32_gate(dev) -> dict:
+    """llama3.2-3b at full width and TRAIN_F32["depth"] layers in float32,
+    TF32 off: one train step on the card against the same port code on the
+    CPU, then microbatches 2 against 1 and remat against none on the card
+    (`train_rel_diff`); the weights are made once on the CPU from seed
+    0."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import zoo
+    from repro_torch.models.module import init_from_specs, tree_map
+    g = TRAIN_F32
+    cfg = dataclasses.replace(cut(ARCHS[TRAIN_ARCH], g["depth"]),
+                              dtype=torch.float32)
+    host = init_from_specs(zoo.build_param_specs(cfg), 0, device="cpu")
+    batch = token_batch(cfg, 0, 2 * g["batch"], g["seq"], "cpu")
+    one = {k: v[:g["batch"]] for k, v in batch.items()}
+
+    def step(device, data, **kw):
+        params = tree_map(lambda p: p.to(device, copy=True), host)
+        fn, state = train_state(cfg, params, **kw)
+        t0 = time.perf_counter()
+        out = fn(params, state, {k: v.to(device) for k, v in data.items()})
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card, card_s = step(dev, one)
+        lr = float(card[2]["lr"])
+        cpu, cpu_s = step("cpu", one)
+        vs_cpu = train_rel_diff(card, cpu, lr)
+        del cpu
+        whole, _ = step(dev, batch)
+        halves, _ = step(dev, batch, microbatches=2)
+        vs_mb = train_rel_diff(halves, whole, lr)
+        del halves
+        plain, _ = step(dev, batch, remat=False)
+        vs_remat = train_rel_diff(whole, plain, lr)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    train_gate(vs_cpu, g["cpu_tol"])
+    train_gate(vs_mb, g["microbatch_tol"])
+    train_gate(vs_remat, g["remat_tol"])
+    res = {"phase": "train_float32", "arch": TRAIN_ARCH, **depth_line(cfg),
+           "dtype": "float32", "allow_tf32": False,
+           "batch": g["batch"], "seq": g["seq"],
+           "loss": float(card[2]["loss"]), "card_step_s": card_s,
+           "cpu_step_s": cpu_s, "card_vs_cpu": vs_cpu,
+           "microbatches_2_vs_1": vs_mb, "remat_vs_none": vs_remat,
+           "tol": {k: v for k, v in g.items() if k.endswith("tol")}}
+    res["checkpoint"] = train_checkpoints(card)
+    del card, whole, plain
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_checkpoints(result) -> dict | str:
+    """A blocking and an asynchronous save of the depth-2 state, each
+    restored onto the card bit-equal; without the optional zstandard, the
+    reason it did not run."""
+    import torch
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    if ckpt.zstandard is None:
+        return "not run: no zstandard"
+    params, state, _ = result
+    tree = {"params": params, "opt": state}
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for mode, blocking in (("blocking", True), ("async", False)):
+            t0 = time.perf_counter()
+            ckpt.save(d, 1 if blocking else 2, tree, blocking=blocking)
+            returned = time.perf_counter() - t0
+            ckpt.wait_for_async()
+            saved = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = ckpt.restore(d, 1 if blocking else 2, like_tree=tree)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in
+                       zip(tree_leaves(back), tree_leaves(tree))), mode
+            out[mode] = {"returned_s": returned, "saved_s": saved,
+                         "restore_s": time.perf_counter() - t0}
+            del back
+    return out
+
+
+def train_phase(dev, counters) -> dict:
+    """llama3.2-3b training at full width and depth: the main path through
+    `launch.train.main` with every launch count set to 0 just before it
+    (the training path runs the plain layers: every count must stay 0),
+    then timed steps, one profiled step, the learning gate on a repeated
+    batch and one compressed step."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+    from repro_torch.models.module import tree_leaves, tree_map
+    cfg = ARCHS[TRAIN_ARCH]
+
+    # ---- the main path: the CLI entry point, 8 steps -------------------
+    log = io.StringIO()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        params = train.main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    assert launches == dict.fromkeys(counters, 0), launches
+    main_peak = torch.cuda.max_memory_allocated()
+    lines = log.getvalue().splitlines()
+    logged = [re.match(r"step +(\d+)  loss (\S+)  gnorm (\S+)  lr (\S+)",
+                       ln) for ln in lines]
+    logged = [tuple(float(x) for x in m.groups()) for m in logged if m]
+    assert lines[-1] == "done" and [int(r[0]) for r in logged] == [0, 7]
+    assert all(np.isfinite(r[1:]).all() for r in logged), logged
+    assert all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+
+    # ---- timed steps, then one under the profiler ----------------------
+    fn, state = train_state(cfg, params)
+    batches = [token_batch(cfg, 100 + i, TRAIN_B, TRAIN_S, dev)
+               for i in range(TRAIN_TIMED)]
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    for b in batches:
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        params, state, m = fn(params, state, b)
+        ev[1].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(step_ms[1:]))
+    shape = ShapeConfig(f"train_b{TRAIN_B}_s{TRAIN_S}", "train", TRAIN_S,
+                        TRAIN_B)
+    flops = zoo.model_flops(cfg, shape)
+    tokens = TRAIN_B * TRAIN_S
+    # full remat runs every layer's forward twice: + 2 N_layers D + the
+    # attention forward again
+    n_layers_params = zoo.active_params(cfg) - cfg.vocab * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    executed = flops + 2.0 * n_layers_params * tokens + \
+        2.0 * TRAIN_B * TRAIN_S * TRAIN_S * cfg.n_heads * cfg.head_dim
+    last = {}
+
+    def one_step():
+        nonlocal params, state
+        params, state, last["m"] = fn(params, state, batches[0])
+
+    profile, _ = step_profile(one_step)
+    ops = op_profile(one_step)
+    loss_after = float(last["m"]["loss"])
+    del fn, batches, last
+    torch.cuda.empty_cache()
+
+    # ---- the learning gate: one batch, LEARN_STEPS steps ---------------
+    constant = dict(lr=LEARN_LR, warmup_steps=0, min_lr_ratio=1.0)
+    fn = train_step_fn(cfg, opt=constant)
+    batch = token_batch(cfg, 1000, TRAIN_B, TRAIN_S, dev)
+    losses, gnorms = [], []
+    state_step = int(state["step"]) + 1
+    for _ in range(LEARN_STEPS):
+        params, state, m = fn(params, state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    assert np.isfinite(losses).all() and np.isfinite(gnorms).all()
+    assert losses[-1] <= losses[0] - LEARN_DROP, losses
+
+    # ---- one step with int8 gradient compression, from the same state --
+    fn = train_step_fn(cfg, opt=constant, grad_compress=True)
+    state["ef"] = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                 device=dev), params)
+    small = {k: v[:2] for k, v in batch.items()}
+    params, state, m = fn(params, state, small)
+    ef_finite = all(bool(torch.isfinite(t).all())
+                    for t in tree_leaves(state["ef"]))
+    ef_max = max(float(t.abs().max()) for t in tree_leaves(state["ef"]))
+    assert ef_finite and np.isfinite(float(m["loss"]))
+    compressed = {"batch": 2, "seq": TRAIN_S, "loss": float(m["loss"]),
+                  "grad_norm": float(m["grad_norm"]), "ef_finite": ef_finite,
+                  "ef_max_abs": ef_max}
+    del fn, state, params, m, batch, small
+    torch.cuda.empty_cache()
+
+    return {
+        "phase": "train", "arch": TRAIN_ARCH, **depth_line(cfg),
+        "dtype": "bfloat16", "remat": True, "batch": TRAIN_B,
+        "seq": TRAIN_S, "argv": TRAIN_ARGV, "main_s": main_s,
+        "main_max_memory_allocated": main_peak, "log": lines,
+        "launches": launches,
+        "step_ms": step_ms, "step_ms_median": med,
+        "tokens_per_s": tokens / med * 1e3,
+        "model_flops": flops, "executed_flops_estimate": executed,
+        "mfu": flops / (med / 1e3) / BF16_OPS_PER_S,
+        "max_memory_allocated": peak,
+        "profile": {**profile, "loss": loss_after, "top_ops": ops},
+        "learning": {"steps": LEARN_STEPS, "lr": LEARN_LR,
+                     "first_step": state_step, "losses": losses,
+                     "grad_norms": gnorms, "drop": losses[0] - losses[-1],
+                     "required_drop": LEARN_DROP},
+        "grad_compress": compressed}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2096,6 +2442,11 @@ def main() -> int:
         served[arch] = serve_phase(dev, counters, arch)
         emit(served[arch])
 
+    # ---- the training main path: launch.train at full width and depth --
+    trained = train_phase(dev, counters)
+    emit(trained)
+    emit(train_float32_gate(dev))
+
     t = times[TIMED_SHAPES[0]]
     sc = fitness[0]["scan"]
     rows = [{
@@ -2143,12 +2494,13 @@ def main() -> int:
              "deepseek-moe-16b")):
         m = serving[name]["main"]
         by_path = {a: r["launches"][name] for a, r in served.items()}
+        by_path[f"train {TRAIN_ARCH}"] = trained["launches"][name]
         row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
             "paths": [f"{served[a]['phase']} {a}"
-                      for a, n in by_path.items() if n],
+                      for a, n in by_path.items() if n and a in served],
             "launches": served[arch]["launches"][name],
             "launches_by_path": by_path,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],

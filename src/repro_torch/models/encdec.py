@@ -5,6 +5,8 @@ The audio conv frontend is a stub, as in the reference: the encoder takes
 precomputed frame embeddings (B, enc_len, D).  Positions are sinusoidal
 (parameter-free).  The stacks are Python loops over the stacked layers
 (views, no copies), and the decoder's caches are written in place.
+`remat` (training) checkpoints each layer of both stacks, saving nothing,
+as the reference's `nothing_saveable` does whatever policy it is given.
 
 `kernels=True` runs the encoder's attention, the decoder's self attention
 and its cross attention through the flash attention kernel, and the
@@ -28,7 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import gelu_mlp, gelu_mlp_specs, layernorm
 from repro_torch.models.module import ParamSpec, stack_specs
-from repro_torch.models.transformer import (_index, _n_layers,
+from repro_torch.models.transformer import (_index, _unstack, remat_layer,
                                             resolve_kernels)
 
 F32 = torch.float32
@@ -87,30 +89,35 @@ def _ln(p, x):
     return layernorm(x, p["scale"], p["bias"])
 
 
-def encode(cfg: ArchConfig, params, enc_embeds, *, kernels=None):
+def encode(cfg: ArchConfig, params, enc_embeds, *, kernels=None,
+           remat=False):
     """enc_embeds: (B, enc_len, D) from the stub conv frontend."""
     kernels = resolve_kernels(kernels, enc_embeds.device)
     B, T, D = enc_embeds.shape
     pos = torch.arange(T, device=enc_embeds.device)[None].expand(B, T)
     x = enc_embeds + sinusoidal(pos, D).to(enc_embeds.dtype)
-    layers = params["enc_layers"]
-    for i in range(_n_layers(layers)):
-        lp = _index(layers, i)
+
+    def layer(x, lp):
         h = _ln(lp["ln1"], x)
         y, _ = attn.gqa_attention(lp["attn"], h, pos, n_heads=cfg.n_heads,
                                   n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
                                   rope="none", causal=False, kernels=kernels)
         x = x + y
-        x = x + gelu_mlp(lp["ffn"], _ln(lp["ln2"], x))
+        return x + gelu_mlp(lp["ffn"], _ln(lp["ln2"], x))
+
+    layer = remat_layer(layer, bool(remat))
+    for lp in _unstack(params["enc_layers"]):
+        x = layer(x, lp)
     return _ln(params["enc_norm"], x)
 
 
 def decode_stack(cfg: ArchConfig, params, tokens, enc_out, *, caches=None,
-                 cur_len=None, kernels=None):
+                 cur_len=None, kernels=None, remat=False):
     """tokens: (B,S). caches: dict(self_k/self_v (L,B,T,H,Dh),
     cross_k/cross_v (L,B,Tenc,H,Dh)), written in place, or None (the
     uncached forward, which projects `enc_out` into cross K/V; with caches
-    `enc_out` is not read); cur_len: Python int or None.
+    `enc_out` is not read); cur_len: Python int or None; remat: checkpoint
+    each layer (only without caches).
 
     Returns (hidden, caches)."""
     embed = params["embed"]
@@ -124,10 +131,8 @@ def decode_stack(cfg: ArchConfig, params, tokens, enc_out, *, caches=None,
     Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
     heads = dict(n_heads=cfg.n_heads, n_kv=Hkv, head_dim=Dh, rope="none",
                  kernels=kernels)
-    layers = params["dec_layers"]
-    for i in range(_n_layers(layers)):
-        lp = _index(layers, i)
-        cache_l = None if caches is None else _index(caches, i)
+
+    def layer(x, lp, cache_l):
         h = _ln(lp["ln1"], x)
         self_cache = None
         if cache_l is not None:
@@ -146,7 +151,11 @@ def decode_stack(cfg: ArchConfig, params, tokens, enc_out, *, caches=None,
         y, _ = attn.gqa_attention(lp["cross"], h, pos, cross_kv=(ck, cv),
                                   **heads)
         x = x + y
-        x = x + gelu_mlp(lp["ffn"], _ln(lp["ln2"], x))
+        return x + gelu_mlp(lp["ffn"], _ln(lp["ln2"], x))
+
+    layer = remat_layer(layer, bool(remat) and caches is None)
+    for i, lp in enumerate(_unstack(params["dec_layers"])):
+        x = layer(x, lp, None if caches is None else _index(caches, i))
     return _ln(params["dec_norm"], x), caches
 
 

@@ -50,6 +50,13 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(like, leaves):
+    """A tree shaped as `like` holding `leaves` in sorted-key order (the
+    inverse of `tree_leaves`, `jax.tree.unflatten`)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def init_from_specs(specs, generator_or_seed, device=None,
                     dtype_override=None):
     """Materialize a spec tree into parameter tensors on `device`.

@@ -10,12 +10,23 @@ KV and latent caches by slice assignment, recurrent state (`state`,
 Qwen2-VL's M-RoPE takes `mrope_positions` (3, B, S); without them the text
 positions drive all three streams, as in the reference.  The encoder-decoder
 (whisper) has its own stacks in `repro_torch.models.encdec`.
-`chunked_ce_loss` and the remat policies wait for training (ROADMAP queue
-1, item 12).
+
+Training: `decoder_forward` returns the MoE load-balance loss summed over
+layers beside the hidden state, and takes `remat` (`REMAT_POLICIES`: one
+`torch.utils.checkpoint` a layer, saving nothing, the matmuls or the tagged
+block outputs); `chunked_ce_loss` is the reference's sequence-blocked
+cross entropy, each block under its own checkpoint, so the (B, S, V)
+logits never live at once.  A stacked parameter group is split into its
+layers by one `unbind` a leaf, whose backward stacks the layers' gradients
+at once.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -164,13 +175,17 @@ def apply_mixer(cfg: ArchConfig, p, x, positions, *, cache=None,
 
 def apply_layer(cfg: ArchConfig, p, x, positions, *, moe_layer=False,
                 cache=None, cur_len=None, mrope_positions=None,
-                kernels: bool = False):
-    """Pre-norm residual block. Returns (x, cache).  (The reference also
-    returns the MoE aux loss, which only training reads: item 12.)"""
+                kernels: bool = False, names: bool = False):
+    """Pre-norm residual block. Returns (x, cache, aux_loss): the MoE
+    layer's float32 load-balance loss, None for every other layer.
+    `names` tags the mixer and FFN outputs for the "names" remat policy."""
+    aux = None
     h = _apply_norm(cfg, p["ln1"], x, kernels=kernels)
     y, cache = apply_mixer(cfg, p["mixer"], h, positions, cache=cache,
                            cur_len=cur_len, mrope_positions=mrope_positions,
                            kernels=kernels)
+    if names:
+        y = checkpoint_name(y, "mixer_out")
     x = x + y
     if cfg.mixer == "rwkv6":
         # rwkv channel-mix with its own token shift
@@ -179,11 +194,11 @@ def apply_layer(cfg: ArchConfig, p, x, positions, *, moe_layer=False,
         y, last_cm_new = rwkv_mod.rwkv6_channel_mix(p["ffn"], h, last_cm)
         if cache is not None:
             cache["last_cm"].copy_(last_cm_new)
-        return x + y, cache
+        return x + y, cache, aux
     if "ffn" in p:
         h = _apply_norm(cfg, p["ln2"], x, kernels=kernels)
         if cfg.ffn == "moe" and moe_layer:
-            y, _ = moe_ffn(
+            y, aux = moe_ffn(
                 p["ffn"], h, top_k=cfg.moe["top_k"],
                 impl=cfg.moe.get("impl", "capacity"),
                 capacity_factor=cfg.moe.get("capacity_factor", 1.25),
@@ -192,8 +207,10 @@ def apply_layer(cfg: ArchConfig, p, x, positions, *, moe_layer=False,
             y = gelu_mlp(p["ffn"], h)
         else:
             y = glu_mlp(p["ffn"], h)
+        if names:
+            y = checkpoint_name(y, "ffn_out")
         x = x + y
-    return x, cache
+    return x, cache, aux
 
 
 def apply_shared_attn(cfg: ArchConfig, p, x, positions, *, cache=None,
@@ -214,32 +231,100 @@ def apply_shared_attn(cfg: ArchConfig, p, x, positions, *, cache=None,
 # ---------------------------------------------------------------------------
 
 def _index(tree, i):
-    """Layer `i` of a stacked parameter or cache tree, as views."""
+    """Layer `i` of a stacked cache tree, as views."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
 
 
-def _n_layers(stacked_params) -> int:
-    """The number of layers of a stacked layer group (each has `ln1`)."""
-    return stacked_params["ln1"]["scale"].shape[0]
+def _unstack(tree) -> list:
+    """The layers of a stacked parameter tree, as views: one `unbind` a
+    leaf, whose backward stacks all the layers' gradients in one tensor
+    (indexing layer by layer would give each layer's gradient as a zero
+    tensor of the whole stack)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return tree.unbind(0)
 
 
-def _run_layers(cfg, stacked_params, x, positions, *, moe_layer=False,
-                caches=None, cur_len=None, mrope_positions=None,
-                kernels: bool = False, layers=None):
+# ---------------------------------------------------------------------------
+# activation checkpointing (the reference's `jax.checkpoint` policies)
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()
+
+
+@_checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+_checkpoint_name.register_autograd(lambda ctx, grad: (grad, None))
+
+
+def checkpoint_name(x, name: str):
+    """`jax.ad_checkpoint.checkpoint_name`: a copy of `x` through an op of
+    its own, which the "names" policy saves."""
+    return torch.ops.repro_torch.checkpoint_name(x, name)
+
+
+# remat policy -> the ops whose outputs the checkpoint saves (every other
+# op is recomputed in the backward pass)
+REMAT_POLICIES = {
+    # full: recompute everything in bwd (min memory, +1 fwd of compute)
+    "full": (),
+    # dots: save the outputs of products without batch dimensions (the
+    # reference's dots_with_no_batch_dims_saveable): the weight GEMMs,
+    # not the attention einsums or the batched expert GEMMs
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+    # names: save only the d-model-sized block outputs tagged in
+    # `apply_layer` (save_only_these_names("mixer_out", "ffn_out"))
+    "names": (torch.ops.repro_torch.checkpoint_name.default,),
+}
+
+
+def remat_layer(fn, remat):
+    """`fn` under the remat policy `remat` (False | True/"full" | "dots" |
+    "names"): one `torch.utils.checkpoint` a call."""
+    if not remat:
+        return fn
+    saved = REMAT_POLICIES["full" if remat is True else remat]
+    kw = {"use_reentrant": False}
+    if saved:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(saved))
+    return functools.partial(checkpoint, fn, **kw)
+
+
+def _run_layers(cfg, layers, x, positions, *, moe_layer=False, caches=None,
+                cur_len=None, mrope_positions=None, kernels: bool = False,
+                offset: int = 0, remat=False):
     """Apply a stacked layer group in order (the reference's `lax.scan`).
-    caches: tree stacked on axis 0, written in place, or None; `layers`: the
-    indices to run (default all)."""
-    if layers is None:
-        layers = range(_n_layers(stacked_params))
-    for i in layers:
-        cache_i = None if caches is None else _index(caches, i)
-        x, _ = apply_layer(cfg, _index(stacked_params, i), x, positions,
-                           moe_layer=moe_layer, cache=cache_i,
-                           cur_len=cur_len, mrope_positions=mrope_positions,
-                           kernels=kernels)
-    return x
+    layers: the group's per-layer trees (`_unstack`); caches: the group's
+    cache tree stacked on axis 0, layer `i` at `offset + i`, written in
+    place, or None; remat: see `remat_layer` (only without caches).
+
+    Returns (x, aux): aux is the MoE layers' load-balance loss summed, or
+    None."""
+    aux = None
+    names = remat == "names"
+    for i, lp in enumerate(layers):
+        cache_i = None if caches is None else _index(caches, offset + i)
+
+        def layer(x, lp=lp, cache_i=cache_i):
+            return apply_layer(cfg, lp, x, positions, moe_layer=moe_layer,
+                               cache=cache_i, cur_len=cur_len,
+                               mrope_positions=mrope_positions,
+                               kernels=kernels, names=names)[::2]
+
+        x, aux_l = remat_layer(layer, remat if caches is None else False)(x)
+        if aux_l is not None:
+            aux = aux_l if aux is None else aux + aux_l
+    return x, aux
 
 
 def resolve_kernels(kernels, device: torch.device) -> bool:
@@ -255,13 +340,15 @@ def resolve_kernels(kernels, device: torch.device) -> bool:
 
 def decoder_forward(cfg: ArchConfig, params, tokens, *, positions=None,
                     mrope_positions=None, caches=None, cur_len=None,
-                    kernels=None):
+                    kernels=None, remat=False):
     """tokens: (B,S) int. caches: the tree of `zoo.build_cache_specs`
     ({"layers": stacked cache tree}, plus "shared" for the hybrid stack and
     "dense_layers" for MoE) or None, written in place; cur_len: Python int
-    or None; mrope_positions: (3,B,S) for M-RoPE, or None.
+    or None; mrope_positions: (3,B,S) for M-RoPE, or None; remat: see
+    `remat_layer` (training, without caches).
 
-    Returns (hidden: (B,S,D), caches)."""
+    Returns (hidden: (B,S,D), caches, aux_loss): the MoE load-balance loss
+    summed over layers, a float32 zero for the other models."""
     check_supported(cfg)
     embed = params["embed"]
     kernels = resolve_kernels(kernels, embed.device)
@@ -273,42 +360,68 @@ def decoder_forward(cfg: ArchConfig, params, tokens, *, positions=None,
     if mrope_positions is None and cfg.rope == "mrope":
         mrope_positions = positions[None].expand(3, B, S)
     x = embed[tokens]
-    run = dict(cur_len=cur_len, kernels=kernels)
+    run = dict(cur_len=cur_len, kernels=kernels, remat=remat)
+    aux = []
 
     def group(name):
         return None if caches is None else caches[name]
 
     if cfg.hybrid:  # zamba2: groups of mamba layers + shared attention block
         every = cfg.hybrid["attn_every"]
+        layers = _unstack(params["layers"])
         for g in range(cfg.n_layers // every):
-            x = _run_layers(cfg, params["layers"], x, positions,
-                            caches=group("layers"),
-                            layers=range(g * every, (g + 1) * every), **run)
+            x, _ = _run_layers(cfg, layers[g * every:(g + 1) * every], x,
+                               positions, caches=group("layers"),
+                               offset=g * every, **run)
             x, _ = apply_shared_attn(
                 cfg, params["shared_attn"], x, positions,
                 cache=None if caches is None else _index(caches["shared"], g),
-                **run)
+                cur_len=cur_len, kernels=kernels)
     else:
         run["mrope_positions"] = mrope_positions
         if "dense_layers" in params:
-            x = _run_layers(cfg, params["dense_layers"], x, positions,
-                            caches=group("dense_layers"), **run)
-        x = _run_layers(cfg, params["layers"], x, positions,
-                        moe_layer=cfg.ffn == "moe", caches=group("layers"),
-                        **run)
+            x, _ = _run_layers(cfg, _unstack(params["dense_layers"]), x,
+                               positions, caches=group("dense_layers"), **run)
+        x, aux_l = _run_layers(cfg, _unstack(params["layers"]), x, positions,
+                               moe_layer=cfg.ffn == "moe",
+                               caches=group("layers"), **run)
+        if aux_l is not None:
+            aux.append(aux_l)
     x = _apply_norm(cfg, params["final_norm"], x, kernels=kernels)
-    return x, caches
+    return x, caches, aux[0] if aux else x.new_zeros((), dtype=F32)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """bf16 ``a`` (n, D) times bf16 ``b`` (V, D) transposed, float32 out
+    (`torch.mm(..., out_dtype=)`, which has no derivative).  The backward
+    pass rounds the float32 output gradient to bf16 and runs bf16 products
+    with float32 sums, rounded once to bf16: the gradient of the
+    reference's einsum under the TPU's default precision (one bf16 pass a
+    product)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b.t(), out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = g @ b if ctx.needs_input_grad[0] else None
+        gb = g.t() @ a if ctx.needs_input_grad[1] else None
+        return ga, gb
 
 
 def logits_f32(x, head):
     """``x`` (..., D) against ``head`` (V, D) -> float32 (..., V), as the
     reference's `einsum(..., preferred_element_type=F32)`: bf16 operands,
     float32 sums, no rounding of the output to bf16.  On the card one
-    product with float32 output (`torch.mm(..., out_dtype=)`); elsewhere
-    float32 operands, which hold bf16 values exactly."""
+    product with float32 output (`_MatmulF32`); elsewhere float32
+    operands, which hold bf16 values exactly."""
     flat = x.reshape(-1, x.shape[-1])
     if flat.is_cuda and flat.dtype == head.dtype == torch.bfloat16:
-        out = torch.mm(flat, head.t(), out_dtype=F32)
+        out = _MatmulF32.apply(flat, head)
     else:
         out = flat.float() @ head.float().t()
     return out.reshape(*x.shape[:-1], head.shape[0])
@@ -317,3 +430,34 @@ def logits_f32(x, head):
 def lm_head(cfg: ArchConfig, params, x):
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return logits_f32(x, head)
+
+
+# ---------------------------------------------------------------------------
+# chunked cross entropy
+# ---------------------------------------------------------------------------
+
+def _ce_block(x, head, labels):
+    """Summed softmax cross entropy of one sequence block, float32 logits."""
+    logits = logits_f32(x, head)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum(lse - tgt)
+
+
+def chunked_ce_loss(x, embed, labels, *, block: int = 512):
+    """x: (B,S,D) final hidden; embed: (V,D) head; labels: (B,S).
+
+    Mean softmax cross entropy over sequence blocks of `block` (S // block
+    blocks of equal length, one block when S < block), each block under
+    its own checkpoint: its float32 (B, block, V) logits live only while
+    it is computed, forward and backward."""
+    B, S, D = x.shape
+    nb = max(S // block, 1)
+    bs = S // nb
+    xb = x.reshape(B, nb, bs, D)
+    lb = labels.reshape(B, nb, bs)
+    total = x.new_zeros((), dtype=F32)
+    for i in range(nb):
+        total = total + checkpoint(_ce_block, xb[:, i], embed, lb[:, i],
+                                   use_reentrant=False)
+    return total / (B * S)

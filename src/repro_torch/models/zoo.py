@@ -10,8 +10,13 @@ through `transformer.decoder_forward` (M-RoPE positions from
 `batch["mrope_positions"]` at prefill, text positions otherwise) and whisper
 through `encdec` (`batch["enc_embeds"]` at prefill; `decode_step` takes
 `enc_out`, which its cached path does not read, as in the reference).
-Caches are written in place. Training (`train_loss`) and `input_specs` wait
-for ROADMAP queue 1, item 12.
+Caches are written in place.
+
+`train_loss` is the training objective (chunked cross entropy, plus
+0.01 x the MoE load-balance loss), run through the plain layers on every
+device, as the reference's runs no Pallas kernel: the CUDA kernels have no
+backward.  `input_specs` gives each cell's data arguments as meta tensors
+(shapes and dtypes, no storage).
 """
 from __future__ import annotations
 
@@ -140,6 +145,29 @@ def kernel_launches(cfg: ArchConfig) -> tuple[dict, dict]:
 # entry points
 # ---------------------------------------------------------------------------
 
+def train_loss(cfg: ArchConfig, params, batch, *, remat=True):
+    """batch: tokens (B,S), labels (B,S) [+ enc_embeds (B,Te,D) for
+    whisper, mrope_positions (3,B,S) for M-RoPE].
+
+    Returns the scalar float32 loss (CE + 0.01 x MoE aux), through the
+    plain layers (`kernels=False`); remat: `transformer.remat_layer`."""
+    if cfg.family == "encdec":
+        enc_out = encdec.encode(cfg, params, batch["enc_embeds"],
+                                kernels=False, remat=remat)
+        x, _ = encdec.decode_stack(cfg, params, batch["tokens"], enc_out,
+                                   kernels=False, remat=remat)
+        return tfm.chunked_ce_loss(x, params["embed"], batch["labels"])
+    x, _, aux = tfm.decoder_forward(
+        cfg, params, batch["tokens"],
+        mrope_positions=batch.get("mrope_positions"), kernels=False,
+        remat=remat)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    loss = tfm.chunked_ce_loss(x, head, batch["labels"])
+    if cfg.ffn == "moe":
+        loss = loss + 0.01 * aux
+    return loss
+
+
 def prefill(cfg: ArchConfig, params, batch, caches, *, kernels=None):
     """Run the prompt, fill caches in place, return last-token float32
     logits (B, V) + caches.  batch: tokens (B,S) [+ enc_embeds (B,Te,D) for
@@ -151,7 +179,7 @@ def prefill(cfg: ArchConfig, params, batch, caches, *, kernels=None):
                                         caches=caches, cur_len=0,
                                         kernels=kernels)
         return tfm.logits_f32(x[:, -1], params["embed"]), caches
-    x, caches = tfm.decoder_forward(
+    x, caches, _ = tfm.decoder_forward(
         cfg, params, batch["tokens"], caches=caches, cur_len=0,
         mrope_positions=batch.get("mrope_positions"), kernels=kernels)
     return tfm.lm_head(cfg, params, x[:, -1]), caches
@@ -172,14 +200,41 @@ def decode_step(cfg: ArchConfig, params, tokens, caches, cur_len: int, *,
                                         caches=caches, cur_len=cur_len,
                                         kernels=kernels)
         return tfm.logits_f32(x[:, -1], params["embed"]), caches
-    x, caches = tfm.decoder_forward(cfg, params, tokens, caches=caches,
+    x, caches, _ = tfm.decoder_forward(cfg, params, tokens, caches=caches,
                                     cur_len=cur_len, kernels=kernels)
     return tfm.lm_head(cfg, params, x[:, -1]), caches
 
 
 # ---------------------------------------------------------------------------
-# analytic FLOPs
+# input specs (meta tensors: shapes and dtypes, no storage) + analytic FLOPs
 # ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """The data arguments of one (arch x shape) cell as meta tensors, with
+    the shapes and dtypes of the reference's `ShapeDtypeStruct`s."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def spec(shape_, dtype=i32):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": spec((B, S))}
+        if shape.kind == "train":
+            batch["labels"] = spec((B, S))
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = spec((B, cfg.enc["enc_len"], cfg.d_model),
+                                       cfg.dtype)
+        if cfg.rope == "mrope":
+            batch["mrope_positions"] = spec((3, B, S))
+        return batch
+    # decode: one new token against a cache of length S
+    batch = {"tokens": spec((B, 1)), "cur_len": spec(())}
+    if cfg.family == "encdec":
+        batch["enc_out"] = spec((B, cfg.enc["enc_len"], cfg.d_model),
+                                cfg.dtype)
+    return batch
+
 
 def active_params(cfg: ArchConfig) -> int:
     """Active parameters per token (MoE counts shared + top_k routed)."""

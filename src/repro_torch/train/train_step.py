@@ -1,0 +1,140 @@
+"""Training step factory, from the JAX package's `repro/train/train_step.py`:
+loss -> grads -> (optional int8 error-feedback gradient compression) ->
+AdamW, with microbatched gradient accumulation.
+
+Gradients come from `torch.autograd.grad` over the parameter leaves (the
+parameter tree stays a plain nested dict of tensors, as the models take
+it); the microbatches run one after another, their float32 gradients
+summed, as the reference's `lax.scan`.  The update is in place
+(`optimizer.adamw_update`): the step returns the same parameter and
+moment tensors, overwritten.  Gradient compression quantizes each
+gradient to int8 with a per-tensor scale and carries the quantization
+error to the next step (error feedback, `ef`, also updated in place), the
+numerics of a compressed all-reduce.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import zoo
+from repro_torch.models.module import (ParamSpec, tree_leaves, tree_map,
+                                       tree_unflatten)
+from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                         init_opt_state, opt_state_specs)
+
+F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    microbatches: int = 1
+    remat: bool | str = True
+    grad_compress: bool = False    # int8 + error feedback
+    opt: AdamWConfig = AdamWConfig()
+
+
+def _quantize_int8(g):
+    scale = torch.clamp_min(torch.max(torch.abs(g)), 1e-8) / 127.0
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+@torch.no_grad()
+def compress_grads(grads, ef):
+    """int8 error-feedback compression: returns (decompressed grads, new
+    ef).  The new error is written into `ef` in place (the returned `ef`
+    is the one given), as the optimizer updates its moments.
+    `torch.round` rounds half to even, as `jnp.round` does."""
+    def one(g, e):
+        gf = e.add_(g.to(F32))            # g + e, where e was
+        q, scale = _quantize_int8(gf)
+        deq = q.to(F32) * scale
+        gf.sub_(deq)                      # the carried error g + e - deq
+        return deq.to(g.dtype)
+
+    out = [one(g, e) for g, e in zip(tree_leaves(grads), tree_leaves(ef))]
+    return tree_unflatten(grads, out), ef
+
+
+def init_train_state(cfg: ArchConfig, params, step_cfg: TrainStepConfig):
+    state = init_opt_state(params)
+    if step_cfg.grad_compress:
+        state["ef"] = tree_map(
+            lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), params)
+    return state
+
+
+def train_state_specs(param_specs, step_cfg: TrainStepConfig):
+    specs = opt_state_specs(param_specs)
+    if step_cfg.grad_compress:
+        specs["ef"] = tree_map(
+            lambda s: ParamSpec(s.shape, F32, s.axes, init="zeros"),
+            param_specs)
+    return specs
+
+
+def _split_batch(batch: dict, mb: int) -> list[dict]:
+    """The global batch as `mb` microbatches on axis 0 (mrope_positions
+    (3, B, S) on axis 1); a tensor whose axis 0 does not divide goes whole
+    to every microbatch, as the reference broadcasts it."""
+    out = [{} for _ in range(mb)]
+    for k, v in batch.items():
+        if k == "mrope_positions":
+            parts = v.reshape(v.shape[0], mb, -1, v.shape[2]).unbind(1)
+        elif v.ndim >= 1 and v.shape[0] % mb == 0:
+            parts = v.reshape((mb, v.shape[0] // mb) + v.shape[1:]).unbind(0)
+        else:
+            parts = [v] * mb
+        for o, part in zip(out, parts):
+            o[k] = part
+    return out
+
+
+def make_train_step(cfg: ArchConfig, step_cfg: TrainStepConfig):
+    """Returns train_step(params, opt_state, batch) -> (params, state,
+    metrics); params and the moments are updated in place."""
+
+    def value_and_grad(params, batch):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = zoo.train_loss(cfg, tree_unflatten(params, leaves), batch,
+                                  remat=step_cfg.remat)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        return loss.detach(), tree_unflatten(params, list(grads))
+
+    def grads_of(params, batch):
+        mb = step_cfg.microbatches
+        if mb <= 1:
+            return value_and_grad(params, batch)
+        loss_acc = None
+        g_acc = None
+        for mb_batch in _split_batch(batch, mb):
+            loss, grads = value_and_grad(params, mb_batch)
+            loss_acc = loss if loss_acc is None else loss_acc + loss
+            if g_acc is None:
+                g_acc = tree_map(lambda g: g.to(F32), grads)
+            else:
+                for a, g in zip(tree_leaves(g_acc), tree_leaves(grads)):
+                    a.add_(g.to(F32))
+            del grads
+        grads = tree_map(lambda g: (g / mb).to(cfg.dtype), g_acc)
+        return loss_acc / mb, grads
+
+    def train_step(params, opt_state, batch):
+        loss, grads = grads_of(params, batch)
+        if step_cfg.grad_compress:
+            grads, new_ef = compress_grads(grads, opt_state["ef"])
+        state = {k: v for k, v in opt_state.items() if k != "ef"}
+        del opt_state
+        new_params, new_state, metrics = adamw_update(
+            step_cfg.opt, params, grads, state)
+        if step_cfg.grad_compress:
+            new_state["ef"] = new_ef
+        metrics["loss"] = loss
+        return new_params, new_state, metrics
+
+    return train_step

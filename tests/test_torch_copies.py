@@ -1,4 +1,5 @@
-"""Copy-drift guard: the modules of the DSE runtime that the port keeps as
+"""Copy-drift guard: the modules of the DSE runtime, the data stream, the
+pipeline planner and the fault-tolerance re-plans that the port keeps as
 plain copies of the JAX package's equal the reference's source once every
 `repro.` is rewritten to `repro_torch.` (imports, lazy imports and
 docstring examples alike).  A change to either side that is not made to
@@ -19,7 +20,8 @@ COPIES = ["api/archspec.py", "api/designspace.py", "api/resilience.py",
           "api/policies.py", "api/distributed.py", "api/__init__.py",
           "obs/events.py", "obs/tracing.py", "obs/realtime.py",
           "obs/export.py", "obs/report.py", "obs/__init__.py",
-          "serve/arrivals.py", "serve/workloads.py", "serve/simulator.py"]
+          "serve/arrivals.py", "serve/workloads.py", "serve/simulator.py",
+          "train/data.py", "train/fault_tolerance.py", "core/planner.py"]
 
 
 def ported(text: str) -> str:

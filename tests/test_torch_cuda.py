@@ -778,3 +778,122 @@ def test_reduced_decoder_kernel_path_matches_plain_path(cuda, arch):
     out = _kernel_and_plain_logits(cfg, params, toks, cuda)
     for got, want in zip(out["kernels"], out["plain"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training on the card: the plain layers, no kernel, the CPU's numbers
+# ---------------------------------------------------------------------------
+
+def _rel(got, want) -> float:
+    """Largest difference relative to the largest magnitude of `want`."""
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _train_once(cfg, params, batch, step_cfg):
+    from repro_torch.models.module import tree_map
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    params = tree_map(torch.clone, params)
+    state = init_train_state(cfg, params, step_cfg)
+    return make_train_step(cfg, step_cfg)(params, state, batch)
+
+
+def _held(a, b, rtol, b1=0.9, eps=1e-8):
+    """Two first-step (params, state, metrics) results: loss, grad norm,
+    lr, m and v within `rtol` of each tensor's largest magnitude. A first
+    AdamW step moves a parameter by lr (u + wd p) with u = h / (|h| + eps),
+    h = m / (1 - b1): a near-zero h can turn u over (float32 sums in
+    another order), so the parameters are held to lr |u_a - u_b| from the
+    held m, plus `rtol` of their largest magnitude."""
+    from repro_torch.models.module import tree_leaves
+    pa, sa, ma = a
+    pb, sb, mb = b
+    for k in ("loss", "grad_norm", "lr"):
+        assert _rel(ma[k], mb[k]) <= rtol, (k, _rel(ma[k], mb[k]))
+    for k in ("m", "v"):
+        for x, y in zip(tree_leaves(sa[k]), tree_leaves(sb[k])):
+            assert _rel(x, y) <= rtol, (k, _rel(x, y))
+    lr = float(mb["lr"])
+    for x, y, m_a, m_b in zip(tree_leaves(pa), tree_leaves(pb),
+                              tree_leaves(sa["m"]), tree_leaves(sb["m"])):
+        h_a, h_b = m_a.cpu() / (1 - b1), m_b.cpu() / (1 - b1)
+        turn = (h_a / (h_a.abs() + eps) - h_b / (h_b.abs() + eps)).abs()
+        diff = (x.float().cpu() - y.float().cpu()).abs()
+        assert float((diff - lr * turn).max()) <= \
+            rtol * float(y.abs().max())
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One float32 step of a reduced llama on the card against the same
+    port code on the CPU (which the CPU tests hold against JAX), TF32 off:
+    loss, grad norm, parameters, m and v to 1e-4 of each tensor's largest
+    magnitude (`_held`); then microbatches=2 against 1 (1e-5) and remat
+    against none (1e-6) on the card."""
+    from repro_torch.models.module import tree_map
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainStepConfig
+    cfg = dataclasses.replace(reduce_config(ARCHS["llama3.2-3b"]),
+                              dtype=torch.float32)
+    params = init_from_specs(zoo.build_param_specs(cfg), 0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+             for k in ("tokens", "labels")}
+    opt = AdamWConfig(warmup_steps=1, total_steps=10)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        on_card = {}
+        for mb, remat in ((1, True), (2, True), (1, False)):
+            scfg = TrainStepConfig(microbatches=mb, remat=remat, opt=opt)
+            on_card[mb, remat] = _train_once(
+                cfg, tree_map(lambda p: p.to(cuda), params),
+                {k: v.to(cuda) for k, v in batch.items()}, scfg)
+        cpu = _train_once(cfg, params, batch,
+                          TrainStepConfig(remat=True, opt=opt))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    _held(on_card[1, True], cpu, 1e-4)
+    _held(on_card[2, True], on_card[1, True], 1e-5)
+    _held(on_card[1, False], on_card[1, True], 1e-6)
+
+
+def test_train_step_launches_no_kernel(cuda):
+    """The training path is the plain layers (the kernels have no
+    backward): a bf16 step on the card launches none of the port's
+    kernels, and its loss and every updated leaf are finite."""
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.train.train_step import TrainStepConfig
+    cfg = reduce_config(ARCHS["deepseek-moe-16b"])
+    params = init_from_specs(zoo.build_param_specs(cfg), 0, device=cuda)
+    toks = torch.as_tensor(normal((2, 64), 3) > 0, device=cuda).long() + 5
+    every = dict(_KERNELS, serialize_prefix=serialize_prefix,
+                 wavefront_scan=wavefront_scan)
+    before = {k: fn.launches for k, fn in every.items()}
+    p, state, m = _train_once(cfg, params, {"tokens": toks, "labels": toks},
+                              TrainStepConfig(grad_compress=True))
+    torch.cuda.synchronize()
+    assert {k: fn.launches - before[k] for k, fn in every.items()} == \
+        dict.fromkeys(every, 0)
+    assert bool(torch.isfinite(m["loss"])) and float(m["loss"]) > 0
+    assert all(bool(torch.isfinite(t).all())
+               for t in tree_leaves({"p": p, **state}))
+
+
+def test_logits_f32_gradient_on_the_card(cuda):
+    """The bf16 product with float32 output has a backward pass: its
+    gradients equal the float32-operand product's within bf16 rounding
+    (the output gradient is rounded to bf16 once, as the TPU's default
+    precision does, and each gradient once more): 1e-2 of the largest
+    magnitude, about two bf16 ulps of it."""
+    x = _on(cuda, normal((64, 128), 1), "bfloat16").requires_grad_()
+    w = _on(cuda, normal((500, 128), 2, 0.05), "bfloat16").requires_grad_()
+    g = _on(cuda, normal((64, 500), 3), "float32")
+    out = logits_f32(x, w)
+    assert out.dtype == torch.float32
+    gx, gw = torch.autograd.grad(out, (x, w), g)
+    xf = x.detach().float().requires_grad_()
+    wf = w.detach().float().requires_grad_()
+    fx, fw = torch.autograd.grad(xf @ wf.t(), (xf, wf), g)
+    assert gx.dtype == gw.dtype == torch.bfloat16
+    assert _rel(gx, fx) <= 1e-2 and _rel(gw, fw) <= 1e-2, \
+        (_rel(gx, fx), _rel(gw, fw))

@@ -4,9 +4,11 @@ module of the port imports (the scan and expert-GEMM kernels' wrappers and
 the Mamba2, RWKV6 and MoE layers among them), `explore(prefilter=True)`
 runs, a tiny `ServeEngine` serves each decoder family (M-RoPE and MLA
 among them), a tiny whisper runs `zoo.prefill` and `zoo.decode_step`,
-`schedule(validate=True)` runs the port's race detector, and the DSE
+`schedule(validate=True)` runs the port's race detector, the DSE
 runtime (`repro_torch.api`, `repro_torch.obs`, `repro_torch.serve.
-simulator`) runs a small traced serial sweep.  `import repro_torch.api.
+simulator`) runs a small traced serial sweep, and the training entry point
+(`repro_torch.launch.train`) takes two steps, with the planner's and the
+fault-tolerance modules imported.  `import repro_torch.api.
 session` loads no torch, so a spawned sweep worker does not pay for it."""
 import ast
 import os
@@ -85,6 +87,13 @@ sweep = ExplorationSession(tracer=tracer).run(DesignSpace(
     ga=GAConfig(pop_size=4, generations=2)))
 assert len(sweep) == sweep.n_scheduled == 4 and sweep.n_failed == 0
 assert tracer.snapshot()["counters"]["sweep.computed"] == 4
+from repro_torch.launch import train
+params = train.main(["--smoke", "--steps", "2", "--layers", "2", "--d-model",
+                     "64", "--seq", "16", "--batch", "2", "--device", "cpu"])
+assert bool(torch.isfinite(params["embed"]).all())
+for mod in ("core.planner", "train.fault_tolerance", "train.checkpoint",
+            "train.optimizer", "train.train_step", "train.data"):
+    assert f"repro_torch.{mod}" in names
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 print(len(names), "modules")
 """

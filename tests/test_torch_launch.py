@@ -2,7 +2,12 @@
 the CPU: which device a call goes to, which variant of a kernel runs for
 which dtype, shape and alignment, and what the launchers' libraries are
 built from.  The kernels themselves are held on the card by
-`tests/test_torch_cuda.py`."""
+`tests/test_torch_cuda.py`.  Also the training entry point
+(`repro_torch.launch.train`) on the CPU: its log in the reference's
+format, its resume from a checkpoint, its refusal of a multi-device mesh,
+and `zoo.input_specs` against the reference's for every config and shape
+kind."""
+import os
 import re
 
 import pytest
@@ -356,3 +361,73 @@ def test_every_wrapper_takes_the_shared_launch_path(name):
     assert f'load_library("{name}")' in src and "lib.launch(" in src
     assert "torch.cuda.device(" not in src
     assert "current_stream(" not in src
+
+
+# ---------------------------------------------------------------------------
+# the training entry point
+# ---------------------------------------------------------------------------
+
+SMOKE = ["--smoke", "--layers", "2", "--d-model", "64", "--seq", "32",
+         "--batch", "4", "--device", "cpu"]
+STEP_LINE = re.compile(r"^step +(\d+)  loss (\d+\.\d{4})  gnorm (\d+\.\d{3})  "
+                       r"lr (\d\.\d\de[+-]\d\d)  \((\d+\.\d\d)s/10steps\)$")
+
+
+def _train(argv, capsys):
+    from repro_torch.launch import train
+    params = train.main(argv)
+    return params, capsys.readouterr().out.splitlines()
+
+
+def test_launch_train_runs_and_logs_as_the_reference(capsys):
+    params, out = _train(SMOKE + ["--steps", "3"], capsys)
+    assert out[0] == "arch=llama3.2-3b-smoke device=cpu"
+    steps = [STEP_LINE.match(line) for line in out[1:-1]]
+    assert all(steps), out
+    assert [int(m.group(1)) for m in steps] == [0, 2]
+    assert all(float(m.group(2)) > 0 for m in steps)
+    assert out[-1] == "done"
+    assert params["embed"].shape == (2048, 64)
+    assert all(bool(torch.isfinite(p).all())
+               for p in params["layers"]["mixer"].values())
+
+
+def test_launch_train_resumes_from_its_checkpoint(tmp_path, capsys):
+    from repro_torch.train import checkpoint as ckpt
+    if ckpt.zstandard is None:
+        pytest.skip("optional 'zstandard' not installed (checkpoints)")
+    ckdir = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    _, first = _train(SMOKE + ["--steps", "3"] + ckdir, capsys)
+    assert sorted(os.listdir(tmp_path)) == ["step_00000002", "step_00000003"]
+    assert not any(line.startswith("resumed") for line in first)
+    _, out = _train(SMOKE + ["--steps", "5"] + ckdir, capsys)
+    assert out[1] == "resumed from step 3"
+    assert [int(STEP_LINE.match(line).group(1)) for line in out[2:-1]] == [4]
+    assert ckpt.latest_step(str(tmp_path)) == 5
+
+
+def test_launch_train_refuses_a_production_mesh():
+    from repro_torch.launch import train
+    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
+        train.main(SMOKE + ["--production-mesh"])
+
+
+def test_input_specs_match_the_reference():
+    """Every config x shape kind: the same arguments, shapes and dtypes as
+    the reference's ShapeDtypeStructs, as meta tensors (no storage)."""
+    from repro.configs import ARCHS as REF_ARCHS
+    from repro.configs import SHAPES as REF_SHAPES
+    from repro.models import zoo as ref_zoo
+
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.models import zoo
+    for arch in REF_ARCHS:
+        for shape in REF_SHAPES:
+            got = zoo.input_specs(ARCHS[arch], SHAPES[shape])
+            want = ref_zoo.input_specs(REF_ARCHS[arch], REF_SHAPES[shape])
+            assert sorted(got) == sorted(want), (arch, shape)
+            for k, spec in want.items():
+                assert got[k].device.type == "meta"
+                assert tuple(got[k].shape) == tuple(spec.shape), (arch, k)
+                assert str(got[k].dtype).removeprefix("torch.") == \
+                    str(spec.dtype), (arch, shape, k)

@@ -150,7 +150,7 @@ def test_prefill_then_decode_matches_full_forward(arch):
     n = 16
     toks = torch.as_tensor(np.random.default_rng(3).integers(
         0, cfg.vocab, size=(1, n + 1)))
-    x, _ = tfm.decoder_forward(cfg, params, toks)
+    x, _, _ = tfm.decoder_forward(cfg, params, toks)
     full = tfm.lm_head(cfg, params, x)
     caches = init_from_specs(zoo.build_cache_specs(cfg, 1, n + 4), 1,
                              device="cpu", dtype_override=torch.float32)

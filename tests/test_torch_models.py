@@ -126,8 +126,8 @@ def run(request):
                 mesh=mesh)
             tok = jnp.argmax(ref[f"decode{i}"], -1).astype(jnp.int32)
             steps.append(np.array(tok))
-    port["hidden"], none = tfm.decoder_forward(pc, params,
-                                               torch.as_tensor(toks))
+    port["hidden"], none, _ = tfm.decoder_forward(pc, params,
+                                                  torch.as_tensor(toks))
     assert none is None
     caches = init_from_specs(zoo.build_cache_specs(pc, B, MAX_LEN), 0,
                              device="cpu")
@@ -204,8 +204,8 @@ def test_qwen2_vl_three_mrope_streams_match_the_reference():
             rc, rparams, {"tokens": jnp.asarray(toks, jnp.int32),
                           "mrope_positions": jnp.asarray(pos, jnp.int32)},
             caches, mesh=mesh)
-    got_h, _ = tfm.decoder_forward(pc, params, torch.as_tensor(toks),
-                                   mrope_positions=torch.as_tensor(pos))
+    got_h, _, _ = tfm.decoder_forward(pc, params, torch.as_tensor(toks),
+                                      mrope_positions=torch.as_tensor(pos))
     caches = init_from_specs(zoo.build_cache_specs(pc, B, MAX_LEN), 0,
                              device="cpu")
     batch = {"tokens": torch.as_tensor(toks),
