@@ -57,6 +57,13 @@ non-zero and prints no `ok` line:
              (`run_shard`, `merge_stores`), each equal to the serial
              unfiltered run; a Chrome trace of the best fused record's
              schedule, checked, and its bottleneck report;
+   tools   — the port's sweep CLIs in process (`repro_torch.tools`):
+             the 28-point manifest through `run_shard` as shards 0/2 and
+             1/2 with heartbeats, `merge_stores` (and `--verify`; a corrupt
+             copy exits 4, a missing source 2), `sweep_top --once` over the
+             heartbeats, `trace_export` twice, byte-identical; the merged
+             records equal the distributed phase's serial run key for key
+             and byte for byte; 0 launches (the CLIs run unfiltered);
    simulate — `repro_torch.launch.serve --simulate` for the transformer,
              rwkv and ssm serving families, twice each, equal both times;
 6. serve   — llama3.2-3b, zamba2-2.7b, rwkv6-3b, deepseek-moe-16b,
@@ -93,7 +100,27 @@ non-zero and prints no `ok` line:
    train_float32 — the same model at 2 layers in float32, TF32 off: one
              step on the card against the CPU, microbatches 2 against 1
              and remat against none on the card, and a blocking and an
-             async checkpoint round trip where zstandard imports.
+             async checkpoint round trip where zstandard imports;
+8. mesh    — the multi-device layer on a one-rank NCCL process group (a
+             file:// store, no network) under `make_host_mesh()`, (1, 1) on
+             cuda: llama3.2-3b through `ServeEngine(mesh=)` with the
+             mesh-free engine's tokens and launches; `decode_step(
+             kv_seq_shard=True)` at full width and depth against the plain
+             decode in float32 (F32_LOGITS_TOL); one deepseek-moe-16b MoE
+             layer at full width through `moe_ffn(mesh=)`, bit-equal to the
+             mesh-free call, 3 `moe_gemm` launches of the `_mma` variant;
+             the GPipe pipeline at one stage (B 8 x S 1024, 4 microbatches,
+             remat) against `zoo.train_loss` (bf16 loss 1e-3; float32 at 2
+             layers, gradients 1e-4); `make_production_mesh()` refused at a
+             world of 1; then two ranks sharing the card through gloo (its
+             transport is host memory): a probe of the collectives on CUDA
+             tensors, split-KV decode on the (2, 1) mesh and a 2-stage
+             pipeline (14 layers a stage), each held in float32 at 2
+             layers against this rank's results and timed in bf16 at full
+             width and depth, and the MoE layer on a (1, 2) mesh, each
+             rank's half of d_ff (704) through `moe_gemm`'s `_mma`
+             kernel, held against this rank's output in bf16.  The line
+             names each part's backend and world size.
 
 Then a line `{"kernels": [...]}`, the `nvidia-smi` name and power limit, and
 last `{"ok": true, "device": {...}}`.  Exits non-zero without CUDA.
@@ -215,6 +242,13 @@ LEARN_DROP = 0.5
 # moments explain (`train_rel_diff`).
 TRAIN_F32 = {"depth": 2, "batch": 1, "seq": 128, "cpu_tol": 1e-4,
              "microbatch_tol": 1e-5, "remat_tol": 1e-6}
+# The mesh phase: llama3.2-3b through the multi-device layer on a one-rank
+# process group, deepseek-moe-16b's MoE layer at full width through
+# `moe_ffn(mesh=)`, and the GPipe pipeline at PIPE's shape (B 8 x S 1024, 4
+# microbatches, remat): one stage here, two stages of 14 layers on two
+# ranks sharing the card where gloo lets them.
+MESH_ARCH, MESH_MOE = "llama3.2-3b", "deepseek-moe-16b"
+PIPE = {"batch": 8, "seq": 1024, "microbatches": 4}
 KERNEL_SHAPES = [(1, 1), (5, 7), (1280, 17), (2048, 28), (40, 33), (300, 257),
                  (160, 17), (32, 17)]
 TIMED_SHAPES = [(1280, 17), (2048, 28)]
@@ -1834,11 +1868,13 @@ def sweep_phase(counters, work_dir) -> tuple:
                               key=lambda r: r.edp).key}, session, space
 
 
-def distributed_phase(work_dir, grid_session, grid_space, best_key) -> dict:
+def distributed_phase(work_dir, grid_session, grid_space,
+                      best_key) -> tuple:
     """examples/distributed_sweep.py's space through the process executor
     (spawned workers beside this CUDA-holding process), under a seeded
     fault schedule, and through 2 shards; then a Chrome trace of the best
-    fused record of the grid."""
+    fused record of the grid.  Returns (the phase's line, the serial run's
+    record contents)."""
     from repro_torch.analysis.staticcheck.racecheck import validate_trace
     from repro_torch.api import (DesignSpace, ExplorationSession,
                                  FaultInjector, GAConfig, RetryPolicy,
@@ -1921,7 +1957,7 @@ def distributed_phase(work_dir, grid_session, grid_space, best_key) -> dict:
             "trace": {"workload": point.workload_name,
                       "arch": point.arch.name, "events": len(events),
                       "bytes": os.path.getsize(path), "racecheck": race},
-            "bottleneck": report.to_dict()}
+            "bottleneck": report.to_dict()}, want
 
 
 def simulate_phase() -> dict:
@@ -1951,6 +1987,539 @@ def simulate_phase() -> dict:
     return {"phase": "simulate", "families": out}
 
 
+def tools_phase(work_dir, want, counters, device: str = "cuda") -> dict:
+    """The port's sweep CLIs in this process, as a user runs them with
+    `python -m repro_torch.tools.<name>`: examples/distributed_sweep.py's
+    28-point manifest through `run_shard` as shards 0/2 and 1/2 with
+    heartbeats, `merge_stores` (and `--verify`, and a corrupt copy refused
+    with exit 4, a missing source with exit 2), `sweep_top --once` over
+    the two heartbeats and `trace_export` twice.  The merged records equal
+    the distributed phase's serial run key for key, byte for byte; the
+    CLIs run unfiltered, as the reference's do, so no kernel launches."""
+    import io
+    import shutil
+
+    from repro_torch.api import (DesignSpace, GAConfig, ResultStore,
+                                 build_manifest)
+    from repro_torch.hw.catalog import EXPLORATION_ARCHITECTURES
+    from repro_torch.tools import (merge_stores, run_shard, sweep_top,
+                                   trace_export)
+
+    t0 = time.perf_counter()
+    root = os.path.join(work_dir, "tools")
+    os.makedirs(root)
+    space = DesignSpace(workloads=list(DIST_WORKLOADS),
+                        archs=EXPLORATION_ARCHITECTURES,
+                        granularities=["layer", GRAN],
+                        ga=GAConfig(**DIST_GA))
+    manifest = build_manifest(space).save(os.path.join(root, "sweep.json"))
+    shards = [os.path.join(root, f"shard{k}") for k in range(2)]
+    beats = [os.path.join(d, "heartbeat.json") for d in shards]
+    merged = os.path.join(root, "merged")
+    bad = os.path.join(root, "corrupt")
+    codes, walls, outs = {}, {}, {}
+
+    def cli(name, main, argv, want_rc):
+        buf, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = main(argv)
+        walls[name] = time.perf_counter() - t0
+        codes[name] = rc
+        outs[name] = buf.getvalue()
+        assert rc == want_rc, (name, rc, buf.getvalue(), err.getvalue())
+
+    for fn in counters.values():
+        fn.launches = 0
+    for k, d in enumerate(shards):
+        cli(f"run_shard {k}/2", run_shard.main,
+            [manifest, "--shard", f"{k}/2", "--out", d,
+             "--heartbeat", beats[k]], 0)
+    cli("merge_stores", merge_stores.main, [merged] + shards, 0)
+    cli("merge_stores --verify", merge_stores.main,
+        [os.path.join(root, "verified")] + shards + ["--verify"], 0)
+    shutil.copytree(shards[0], bad)
+    path = ResultStore.resolve_path(bad)
+    lines = open(path).read().splitlines(True)
+    with open(path, "w") as f:
+        f.writelines(lines[:1] + ["garbage\n"] + lines[1:])
+    cli("merge_stores --verify corrupt", merge_stores.main,
+        [os.path.join(root, "refused"), bad, "--verify"], 4)
+    cli("merge_stores missing", merge_stores.main,
+        [os.path.join(root, "none"), os.path.join(root, "missing")], 2)
+    cli("sweep_top --once", sweep_top.main,
+        beats + ["--stores"] + shards + ["--once"], 0)
+    blobs = []
+    for run in ("a", "b"):
+        cli(f"trace_export {run}", trace_export.main,
+            ["--out", os.path.join(root, f"trace_{run}"), "--device",
+             device], 0)
+        blobs.append({f: open(os.path.join(root, f"trace_{run}", f),
+                              "rb").read()
+                      for f in ("schedule_trace.json", "serving_trace.json",
+                                "bottleneck.json", "bottleneck.txt")})
+    assert blobs[0] == blobs[1]
+    launches = {name: fn.launches for name, fn in counters.items()}
+    assert not any(launches.values()), launches
+
+    got = {r.key: json.dumps(record_content(r), sort_keys=True)
+           for r in ResultStore(merged).values()}
+    serial = {r["key"]: json.dumps(r, sort_keys=True) for r in want}
+    assert got == serial
+    top = outs["sweep_top --once"]
+    assert "fleet: 2/2 live" in top and f"done {len(want)}/{len(want)}" in \
+        top, top
+    beat = [json.load(open(b)) for b in beats]
+    assert all(b["status"] == "done" for b in beat)
+    return {"phase": "tools", "points": len(want), "exit_codes": codes,
+            "wall_s": time.perf_counter() - t0, "cli_wall_s": walls,
+            "merged_equal_serial": True,
+            "heartbeats": [{k: b.get(k) for k in ("done", "failed", "total",
+                                                   "status")} for b in beat],
+            "sweep_top": top.splitlines()[-1],
+            "trace_bytes": {k: len(v) for k, v in blobs[0].items()},
+            "launches": launches}
+
+
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def seeded_params(cfg, dev, seed: int = 0):
+    """`cfg`'s parameters drawn on `dev` from `seed`."""
+    import torch
+    from repro_torch.models import zoo
+    from repro_torch.models.module import init_from_specs
+    return init_from_specs(zoo.build_param_specs(cfg),
+                           torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+
+
+def mesh_serve(dev, counters, mesh, cfg) -> dict:
+    """`cfg` through `ServeEngine(mesh=)` and the mesh-free engine on the
+    same weights: the same tokens and every kernel's launches the same."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    params = seeded_params(cfg, dev)
+    new = SERVED.get(cfg.name, (4,))[0]
+    prompts = np.random.default_rng(5).integers(1, cfg.vocab,
+                                                size=(N_REQ, PROMPT))
+    kw = dict(batch_slots=SLOTS, prompt_len=PROMPT, max_len=MAX_LEN,
+              device=dev)
+    out = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        eng = ServeEngine(cfg, params, mesh=m, **kw)
+        if m is not None:
+            assert eng.params["embed"] is params["embed"]
+        for fn in counters.values():
+            fn.launches = 0
+        sync(dev)
+        t0 = time.perf_counter()
+        reqs = eng.serve([Request(prompt=p, max_new_tokens=new)
+                          for p in prompts])
+        sync(dev)
+        out[name] = {"wall_s": time.perf_counter() - t0,
+                     "tokens": [r.out_tokens for r in reqs],
+                     "launches": {k: fn.launches
+                                  for k, fn in counters.items()}}
+        del eng
+    assert out["mesh"]["tokens"] == out["plain"]["tokens"]
+    assert out["mesh"]["launches"] == out["plain"]["launches"]
+    assert any(out["mesh"]["launches"].values()) or dev.type != "cuda"
+    del params
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "requests": N_REQ,
+            "new_tokens": new, "tokens_equal": True,
+            "launches": out["mesh"]["launches"],
+            "wall_s": {k: v["wall_s"] for k, v in out.items()}}
+
+
+def kv_decode(cfg, params, mesh, dev, kv: bool, steps: int = 4,
+              kernels=None):
+    """`zoo.prefill` of SLOTS seeded prompts, then `steps` greedy
+    `decode_step`s on `mesh` (its caches laid out by
+    `zoo.cache_shardings`), split-KV or not: (every step's logits, decode
+    ms per step)."""
+    import torch
+    from repro_torch.models import zoo
+    from repro_torch.models.module import init_from_specs
+    from repro_torch.models.transformer import param_shardings
+    from repro_torch.sharding.rules import local_specs, shard_tree
+    p = shard_tree(params, param_shardings(cfg, mesh))
+    caches = init_from_specs(local_specs(
+        zoo.build_cache_specs(cfg, SLOTS, MAX_LEN),
+        zoo.cache_shardings(cfg, SLOTS, MAX_LEN, mesh, kv)), 0, device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(6).integers(
+        1, cfg.vocab, size=(SLOTS, PROMPT)), device=dev)
+    logits, caches = zoo.prefill(cfg, p, {"tokens": tokens}, caches,
+                                 mesh=mesh, kv_seq_shard=kv, kernels=kernels)
+    out = [logits]
+    sync(dev)
+    t0 = time.perf_counter()
+    for t in range(steps):
+        logits, caches = zoo.decode_step(
+            cfg, p, out[-1].argmax(-1)[:, None], caches, PROMPT + t,
+            mesh=mesh, kv_seq_shard=kv, kernels=kernels)
+        out.append(logits)
+    sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3 / steps
+
+
+def mesh_kv(dev, mesh, cfg) -> dict:
+    """`decode_step(kv_seq_shard=True)` against `kv_seq_shard=False` on
+    `mesh`, `cfg` in float32 (TF32 off): every step's logits within
+    F32_LOGITS_TOL."""
+    import dataclasses
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    params = seeded_params(cfg, dev, 1)
+    kv, kv_ms = kv_decode(cfg, params, mesh, dev, True)
+    rows, rows_ms = kv_decode(cfg, params, mesh, dev, False)
+    diffs = [float((a - b).abs().max()) for a, b in zip(kv, rows)]
+    assert max(diffs) <= F32_LOGITS_TOL, diffs
+    assert all(bool(torch.isfinite(x).all()) for x in kv)
+    del params
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": "float32",
+            "steps": len(kv) - 1, "max_abs_diff": max(diffs),
+            "diffs": diffs, "tol": F32_LOGITS_TOL,
+            "logits_max_abs": float(rows[0].abs().max()),
+            "decode_ms_per_step": {"kv_seq_shard": kv_ms, "plain": rows_ms}}
+
+
+def moe_inputs(cfg, dev):
+    """One MoE layer of `cfg` at full width, seeded, a prefill wave's
+    tokens and `moe_ffn`'s keywords: (params, x, kw)."""
+    import torch
+    from repro_torch.models.layers import moe_specs
+    from repro_torch.models.module import init_from_specs
+    m = cfg.moe
+    params = init_from_specs(
+        moe_specs(cfg.d_model, m["d_ff_expert"], m["n_routed"],
+                  m["n_shared"], cfg.dtype),
+        torch.Generator(device=dev).manual_seed(2), device=dev)
+    x = (torch.randn(SLOTS, PROMPT, cfg.d_model, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(3))
+         .to(cfg.dtype))
+    return params, x, dict(top_k=m["top_k"],
+                           capacity_factor=m.get("capacity_factor", 1.25))
+
+
+def mesh_moe(dev, counters, mesh, cfg) -> dict:
+    """One MoE layer of `cfg` at full width (seeded weights, a prefill
+    wave's tokens) through `moe_ffn(mesh=)` with the kernels: equal to the
+    mesh-free call bit for bit, three `moe_gemm` launches, each of the
+    tensor-core variant."""
+    import torch
+    from repro_torch.models.layers import moe_ffn
+    m = cfg.moe
+    params, x, kw = moe_inputs(cfg, dev)
+    use = dev.type == "cuda"
+    counters["moe_gemm"].launches = 0
+    got, aux = moe_ffn(params, x, mesh=mesh, kernels=use, **kw)
+    launches = counters["moe_gemm"].launches
+    want, want_aux = moe_ffn(params, x, kernels=use, **kw)
+    assert torch.equal(got, want) and float(aux) == float(want_aux)
+    plain, _ = moe_ffn(params, x, mesh=mesh, kernels=False, **kw)
+    err = float((got.float() - plain.float()).abs().max())
+    assert err <= SERVE_TOL["bfloat16"] * max(1.0, float(
+        plain.float().abs().max())), err
+    out = {"arch": cfg.name, "d_model": cfg.d_model,
+           "d_ff_expert": m["d_ff_expert"], "experts": m["n_routed"],
+           "tokens": SLOTS * PROMPT, "launches": launches,
+           "equal_to_mesh_free": True, "max_abs_err_vs_plain": err}
+    if use:
+        assert launches == 3, launches
+        _, kernels = step_profile(
+            lambda: moe_ffn(params, x, mesh=mesh, kernels=True, **kw))
+        assert_variant(kernels, "moe_gemm_kernel", "_mma")
+        out["variant"] = "_mma"
+    del params
+    return out, got
+
+
+def pipeline_run(cfg, params, mesh, dev, *, batch, seq, microbatches,
+                 backward: bool = True):
+    """The GPipe loss of `cfg` on `mesh` ("pipe" stages) over
+    TokenStream's batch 0, remat on, and its gradients: (loss, grads
+    list, ms).  `params` is whole; each stage takes its layers."""
+    import torch
+    from repro_torch.models.module import tree_leaves, tree_map, \
+        tree_unflatten
+    from repro_torch.train.pipeline import make_pipeline_loss
+    n = mesh.size("pipe")
+    stage = mesh.index("pipe")
+    local = dict(params)
+    local["layers"] = tree_map(
+        lambda a: a.reshape((n, -1) + a.shape[1:])[stage:stage + 1],
+        params["layers"])
+    leaves = [p.detach().requires_grad_(backward) for p in
+              tree_leaves(local)]
+    local = tree_unflatten(local, leaves)
+    fn = make_pipeline_loss(cfg, mesh, n_stages=n,
+                            n_microbatches=microbatches, remat=True)
+    data = token_batch(cfg, 0, batch, seq, dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    with torch.set_grad_enabled(backward):
+        loss = fn(local, data)
+        grads = torch.autograd.grad(loss, leaves) if backward else []
+    sync(dev)
+    return float(loss.detach()), grads, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_pipeline(dev, cfg, gate_cfg) -> dict:
+    """The pipeline at one stage on a one-rank ("pipe", "data") mesh
+    against `zoo.train_loss`: `cfg` in bf16 at PIPE's shape (loss within
+    1e-3, times of the second pipeline run and of `train_loss` and its
+    gradients after it), `gate_cfg` in float32 (loss 1e-5 relative,
+    gradients 1e-4 of each leaf's largest magnitude)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import zoo
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.sharding.rules import Mesh
+    mesh = Mesh((1, 1), ("pipe", "data"), device_type=dev.type)
+    shape = dict(batch=PIPE["batch"], seq=PIPE["seq"],
+                 microbatches=PIPE["microbatches"])
+    out = {}
+    for name, c in (("bf16", cfg), ("float32", dataclasses.replace(
+            gate_cfg, dtype=torch.float32))):
+        params = seeded_params(c, dev, 4)
+        pipeline_run(c, params, mesh, dev, **shape)          # warm-up
+        loss, grads, ms = pipeline_run(c, params, mesh, dev, **shape)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        from repro_torch.models.module import tree_unflatten
+        data = token_batch(c, 0, PIPE["batch"], PIPE["seq"], dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        want = zoo.train_loss(c, tree_unflatten(params, leaves), data)
+        want_g = torch.autograd.grad(want, leaves)
+        sync(dev)
+        ref_ms = (time.perf_counter() - t0) * 1e3
+        want = want.detach()
+        res = {"n_layers": c.n_layers, "loss": loss, "train_loss":
+               float(want), "ms": ms, "train_loss_ms": ref_ms}
+        if name == "bf16":
+            assert abs(loss - float(want)) < 1e-3, res
+        else:
+            assert abs(loss - float(want)) <= 1e-5 * abs(float(want)), res
+            worst = 0.0
+            for g, w in zip(grads, want_g):
+                w = w.reshape(g.shape)
+                worst = max(worst, float((g - w).abs().max()) /
+                            max(float(w.abs().max()), 1e-30))
+            assert worst <= 1e-4, worst
+            res["grad_rel_diff"] = worst
+        out[name] = res
+        del params, grads, want_g, leaves
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return {"stages": 1, **{k: PIPE[k] for k in ("batch", "seq",
+                                                 "microbatches")}, **out}
+
+
+def two_rank_child(rank: int, world: int, d: str, device_type: str,
+                   full, moe_cfg, gate_layers: int, shapes: dict) -> None:
+    """One of two ranks sharing one device through gloo: a probe of the
+    collectives on that device's tensors, then split-KV decode on the
+    (2, 1) host mesh and a 2-stage pipeline, each in float32 at
+    `gate_layers` layers (logits and losses written for the parent to
+    hold) and in bf16 at full width and depth (times), and `moe_cfg`'s
+    MoE layer on a (1, 2) mesh: each rank's half of the experts' d_ff
+    through `moe_gemm`'s tensor-core kernel."""
+    import dataclasses
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.rules import Mesh
+    globals().update(shapes)         # the parent's PIPE and serving shapes
+    dev = torch.device(device_type, 0) if device_type == "cuda" \
+        else torch.device("cpu")
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        d, "store"), rank=rank, world_size=world)
+    # gloo's collectives on this device's tensors (staged through the host)
+    x = torch.full((4,), float(rank + 1), device=dev)
+    dist.all_reduce(x)
+    parts = [torch.empty(2, device=dev) for _ in range(world)]
+    dist.all_gather(parts, torch.full((2,), float(rank), device=dev))
+    assert float(x[0]) == 3.0 and [float(p[0]) for p in parts] == [0.0, 1.0]
+    res = {}
+    gate = dataclasses.replace(cut(full, gate_layers),
+                               dtype=torch.float32)
+    mesh = make_host_mesh(device_type=device_type)
+    pipe = Mesh((2, 1), ("pipe", "data"), device_type=device_type)
+    logits, _ = kv_decode(gate, seeded_params(gate, dev, 1), mesh, dev,
+                          True, kernels=False)
+    res["kv_gate"] = [x.cpu().numpy() for x in logits]
+    _, res["kv_ms"] = kv_decode(full, seeded_params(full, dev, 1), mesh,
+                                dev, True, steps=1, kernels=False)
+    shape = dict(batch=PIPE["batch"], seq=PIPE["seq"],
+                 microbatches=PIPE["microbatches"])
+    loss, grads, _ = pipeline_run(gate, seeded_params(gate, dev, 4),
+                                  pipe, dev, **shape)
+    res["pipe_gate"] = {"loss": loss, "stage": pipe.index("pipe"),
+                        "grads": [g.cpu().numpy() for g in grads]}
+    params = seeded_params(full, dev, 4)
+    pipeline_run(full, params, pipe, dev, **dict(shape, seq=128))
+    loss, _, ms = pipeline_run(full, params, pipe, dev, **shape)
+    res["pipe_full"] = {"loss": loss, "ms": ms}
+    del params
+    # the expert-parallel MoE: d_ff split over two "model" ranks
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.models.layers import moe_ffn
+    tp = Mesh((1, 2), ("data", "model"), device_type=device_type)
+    params, x, kw = moe_inputs(moe_cfg, dev)
+    use = device_type == "cuda"
+    moe_gemm.launches = 0
+    y, _ = moe_ffn(params, x, mesh=tp, kernels=use, **kw)
+    res["moe"] = {"out": y.float().cpu().numpy(),
+                  "launches": moe_gemm.launches,
+                  "d_ff_local": moe_cfg.moe["d_ff_expert"] // 2}
+    if use:
+        _, kernels = step_profile(
+            lambda: moe_ffn(params, x, mesh=tp, kernels=True, **kw))
+        assert_variant(kernels, "moe_gemm_kernel", "_mma")
+        res["moe"]["variant"] = "_mma"
+    if device_type == "cuda":
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    dist.destroy_process_group()
+    with open(os.path.join(d, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def two_ranks(dev, full, moe_cfg, gate_layers: int, one: dict) -> dict:
+    """Two ranks sharing the one device: two processes through gloo
+    (NCCL refuses two ranks on one device; gloo stages CUDA tensors
+    through host memory).  Each rank's split-KV decode and 2-stage
+    pipeline are held against the one-rank results of `one` in float32
+    at `gate_layers` layers (logits F32_LOGITS_TOL; the loss 1e-5
+    relative and every gradient 1e-4 of its leaf's largest magnitude),
+    and timed in bf16 at full width and depth."""
+    import pickle
+
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        shapes = {"PIPE": PIPE, "SLOTS": SLOTS, "PROMPT": PROMPT,
+                  "MAX_LEN": MAX_LEN}
+        mp.start_processes(two_rank_child, args=(
+            2, d, dev.type, full, moe_cfg, gate_layers, shapes), nprocs=2,
+            join=True,
+            start_method="spawn")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    out = {"backend": "gloo", "world_size": 2, "wall_s": wall,
+           "transport": "host memory (gloo stages device tensors through "
+                        "the host; not an NVLink system's times)",
+           "shared": True}
+    kv = [max(float(np.abs(a - b.cpu().numpy()).max())
+              for a, b in zip(r["kv_gate"], one["kv"])) for r in ranks]
+    assert max(kv) <= F32_LOGITS_TOL, kv
+    want_loss, want_grads = one["pipe"]
+    worst = 0.0
+    for r in ranks:
+        g = r["pipe_gate"]
+        assert abs(g["loss"] - want_loss) <= 1e-5 * abs(want_loss), \
+            (g["loss"], want_loss)
+        for got, w in zip(g["grads"], want_grads):
+            w = w.cpu().numpy()
+            if got.shape != w.shape:     # a layer leaf: this stage's half
+                w = w.reshape((2, -1) + w.shape[2:])[g["stage"]:
+                                                     g["stage"] + 1]
+            worst = max(worst, float(np.abs(got - w).max()) /
+                        max(float(np.abs(w).max()), 1e-30))
+    assert worst <= 1e-4, worst
+    assert abs(ranks[0]["pipe_full"]["loss"] -
+               ranks[1]["pipe_full"]["loss"]) == 0.0
+    want = one["moe"].float().cpu().numpy()
+    limit = SERVE_TOL["bfloat16"] * max(1.0, float(np.abs(want).max()))
+    moe_err = max(float(np.abs(r["moe"]["out"] - want).max()) for r in ranks)
+    assert moe_err <= limit, (moe_err, limit)
+    assert all(r["moe"]["launches"] == (3 if dev.type == "cuda" else 0)
+               for r in ranks)
+    out.update({
+        "kv_gate_max_abs_diff": max(kv), "kv_decode_ms_per_step":
+        [r["kv_ms"] for r in ranks], "pipe_gate_grad_rel_diff": worst,
+        "pipe_full_loss": ranks[0]["pipe_full"]["loss"],
+        "pipe_full_ms": [r["pipe_full"]["ms"] for r in ranks],
+        "moe": {"mesh": [1, 2], "d_ff_local": ranks[0]["moe"]["d_ff_local"],
+                "max_abs_err_vs_one_rank": moe_err,
+                "launches": [r["moe"]["launches"] for r in ranks],
+                "variant": ranks[0]["moe"].get("variant")},
+        "max_memory_allocated": [r.get("max_memory_allocated")
+                                 for r in ranks]})
+    return out
+
+
+def mesh_phase(dev, counters, *, serve_cfg, moe_cfg,
+               gate_layers: int = 2) -> dict:
+    """The multi-device layer on one device: a one-rank process group
+    (NCCL on the card) under `make_host_mesh()`; the serving engine, the
+    split-KV decode, the expert-parallel MoE and the pipeline at one
+    stage on it; the production mesh's refusal; then two ranks on the one
+    device (`two_ranks`), held against this rank's results."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.sharding.rules import Mesh
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    out = {"phase": "mesh"}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(backend, init_method="file://" +
+                                os.path.join(d, "store"), rank=0,
+                                world_size=1)
+        try:
+            mesh = make_host_mesh(device_type=dev.type)
+            assert mesh.shape == {"data": 1, "model": 1}
+            assert mesh.device_mesh is not None
+            out.update(backend=dist.get_backend(),
+                       world_size=dist.get_world_size(), mesh=mesh.shape)
+            out["serve"] = mesh_serve(dev, counters, mesh, serve_cfg)
+            out["kv_seq_shard"] = mesh_kv(dev, mesh, serve_cfg)
+            out["moe"], moe_out = mesh_moe(dev, counters, mesh, moe_cfg)
+            out["pipeline"] = mesh_pipeline(dev, serve_cfg,
+                                            cut(serve_cfg, gate_layers))
+            try:
+                make_production_mesh(device_type=dev.type)
+                raise AssertionError("the production mesh took one rank")
+            except ValueError as e:
+                out["production_mesh"] = str(e)
+            # this rank's float32 results at the gate's depth
+            gate = dataclasses.replace(cut(serve_cfg, gate_layers),
+                                       dtype=torch.float32)
+            kv, _ = kv_decode(gate, seeded_params(gate, dev, 1), mesh, dev,
+                              True, kernels=False)
+            pipe1 = Mesh((1, 1), ("pipe", "data"), device_type=dev.type)
+            params = seeded_params(gate, dev, 4)
+            loss, grads, _ = pipeline_run(
+                gate, params, pipe1, dev, batch=PIPE["batch"],
+                seq=PIPE["seq"], microbatches=PIPE["microbatches"])
+            assert len(grads) == len(tree_leaves(params))
+            one = {"kv": kv, "pipe": (loss, grads), "moe": moe_out}
+        finally:
+            dist.destroy_process_group()
+    out["one_rank_wall_s"] = time.perf_counter() - t0
+    out["two_ranks"] = two_ranks(dev, serve_cfg, moe_cfg, gate_layers, one)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def train_step_fn(cfg, steps: int = 8, opt: dict | None = None, **kw):
     """A train step with the configuration `launch.train` builds for
     `steps` steps at its default learning rate, or with the AdamW fields
@@ -1958,8 +2527,8 @@ def train_step_fn(cfg, steps: int = 8, opt: dict | None = None, **kw):
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import TrainStepConfig, make_train_step
     opt = opt or dict(total_steps=steps, warmup_steps=min(20, steps // 5))
-    return make_train_step(cfg, TrainStepConfig(opt=AdamWConfig(**opt),
-                                                **kw))
+    return make_train_step(cfg, None,
+                           TrainStepConfig(opt=AdamWConfig(**opt), **kw))
 
 
 def train_state(cfg, params, steps: int = 8, **kw):
@@ -2429,8 +2998,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work_dir:
         swept, grid_session, grid_space = sweep_phase(counters, work_dir)
         emit(swept)
-        emit(distributed_phase(work_dir, grid_session, grid_space,
-                               swept["best_fused"]))
+        dist_line, serial = distributed_phase(work_dir, grid_session,
+                                              grid_space, swept["best_fused"])
+        emit(dist_line)
+        emit(tools_phase(work_dir, serial, counters))
     emit(simulate_phase())
 
     # ---- the serving main paths: each model through ServeEngine.serve ----
@@ -2446,6 +3017,12 @@ def main() -> int:
     trained = train_phase(dev, counters)
     emit(trained)
     emit(train_float32_gate(dev))
+
+    # ---- the multi-device layer on the card ------------------------------
+    from repro_torch.configs import ARCHS
+    meshed = mesh_phase(dev, counters, serve_cfg=ARCHS[MESH_ARCH],
+                        moe_cfg=ARCHS[MESH_MOE])
+    emit(meshed)
 
     t = times[TIMED_SHAPES[0]]
     sc = fitness[0]["scan"]
@@ -2495,6 +3072,9 @@ def main() -> int:
         m = serving[name]["main"]
         by_path = {a: r["launches"][name] for a, r in served.items()}
         by_path[f"train {TRAIN_ARCH}"] = trained["launches"][name]
+        by_path[f"mesh {MESH_ARCH}"] = meshed["serve"]["launches"][name]
+        if name == "moe_gemm":
+            by_path[f"mesh moe_ffn {MESH_MOE}"] = meshed["moe"]["launches"]
         row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",

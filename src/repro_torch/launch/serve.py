@@ -7,7 +7,10 @@ with the flags of the JAX package's `repro/launch/serve.py` plus `--device`:
 As in the reference, `--smoke` defaults to on (`action="store_true",
 default=True`), so the CLI always serves the reduced config; a full-width
 model is served through `ServeEngine` directly (see `chip_smoke.py`).
-`--production-mesh` (a multi-device mesh) raises: ROADMAP queue 1, item 13.
+The engine runs on `launch.mesh.make_host_mesh()` (every rank of the
+initialised process group, or one rank without one), or on the (16, 16)
+production mesh under `--production-mesh`, which raises ValueError unless
+the world holds 256 ranks, as the reference does without 256 devices.
 
 `--simulate` swaps the token engine for the analytic closed loop
 (`repro_torch.serve.simulator`): phase costs are scheduled through an
@@ -29,6 +32,8 @@ def _run_engine(args):
     import numpy as np
 
     from repro_torch.configs import ARCHS, reduce_config
+    from repro_torch.core.vectorized import resolve_device
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.models.module import init_from_specs
     from repro_torch.models.zoo import build_param_specs
     from repro_torch.serve.engine import Request, ServeEngine
@@ -36,8 +41,12 @@ def _run_engine(args):
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = reduce_config(cfg)
+    device_type = resolve_device(args.device).type
+    mesh = (make_production_mesh(device_type=device_type)
+            if args.production_mesh
+            else make_host_mesh(device_type=device_type))
     params = init_from_specs(build_param_specs(cfg), 0, device=args.device)
-    engine = ServeEngine(cfg, params, batch_slots=args.batch_slots,
+    engine = ServeEngine(cfg, params, mesh=mesh, batch_slots=args.batch_slots,
                          max_len=args.prompt_len + args.max_new + 8,
                          prompt_len=args.prompt_len, device=args.device)
     rng = np.random.default_rng(0)
@@ -50,7 +59,8 @@ def _run_engine(args):
     total_tokens = sum(len(r.out_tokens) for r in reqs)
     print(f"served {len(reqs)} requests, {total_tokens} tokens "
           f"in {dt:.2f}s ({total_tokens / dt:.1f} tok/s on "
-          f"{engine.device}); peak occupancy {engine.max_active}/{engine.B}")
+          f"{engine.device}, mesh {mesh.shape}); peak occupancy "
+          f"{engine.max_active}/{engine.B}")
     for i, r in enumerate(reqs):
         print(f"req{i}: {r.out_tokens[:12]}...")
     return reqs
@@ -112,10 +122,6 @@ def main(argv=None):
         args.rate = [1000.0]
     if args.simulate:
         return _run_simulator(args)
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh (a multi-device mesh) is not ported yet: "
-            "ROADMAP queue 1, item 13")
     return _run_engine(args)
 
 

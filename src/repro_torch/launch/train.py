@@ -11,8 +11,14 @@ device (default cuda; `--device cpu` runs there); the data is
 (async), resumes automatically from --ckpt-dir, logs loss, grad-norm, lr
 and step time every 10 steps and at the last.  The step runs the plain
 layers (`zoo.train_loss`), so no CUDA kernel of the port launches.
-`--production-mesh` (a multi-device mesh) raises: ROADMAP queue 1, item 13.
-`main(argv)` returns the final parameters.
+The step runs on `launch.mesh.make_host_mesh()` (every rank of the
+initialised process group, or one rank without one), or on the (16, 16)
+production mesh under `--production-mesh`, which raises ValueError unless
+the world holds 256 ranks, as the reference does without 256 devices.
+Every rank draws the same seeded parameters and keeps its blocks of them
+and of the optimizer state (`transformer.param_shardings`); checkpoints
+hold whole arrays, gathered and written by rank 0, and restore onto any
+mesh.  `main(argv)` returns this rank's blocks of the final parameters.
 """
 from __future__ import annotations
 
@@ -23,8 +29,12 @@ import torch
 
 from repro_torch.configs import ARCHS, reduce_config
 from repro_torch.core.vectorized import resolve_device
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.models.transformer import param_shardings
 from repro_torch.models.module import init_from_specs
 from repro_torch.models.zoo import build_param_specs
+from repro_torch.sharding.rules import (P, NamedSharding, gather_tree,
+                                        shard_tree)
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import DataConfig, TokenStream
 from repro_torch.train.fault_tolerance import resume_or_init
@@ -53,17 +63,15 @@ def main(argv=None):
                     help="torch device (default: cuda; 'cpu' to run there)")
     args = ap.parse_args(argv)
 
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh (a multi-device mesh) is not ported yet: "
-            "ROADMAP queue 1, item 13")
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = reduce_config(cfg, n_layers=args.layers, d_model=args.d_model,
                             n_heads=max(4, args.d_model // 64),
                             d_ff=args.d_model * 3, vocab=2048)
     dev = resolve_device(args.device)
-    print(f"arch={cfg.name} device={dev}")
+    mesh = (make_production_mesh(device_type=dev.type)
+            if args.production_mesh else make_host_mesh(device_type=dev.type))
+    print(f"arch={cfg.name} device={dev} mesh={mesh.shape}")
 
     step_cfg = TrainStepConfig(
         microbatches=args.microbatches, remat=True,
@@ -71,14 +79,26 @@ def main(argv=None):
         opt=AdamWConfig(lr=args.lr, total_steps=args.steps,
                         warmup_steps=min(20, args.steps // 5)))
     pspecs = build_param_specs(cfg)
+    params_sh = param_shardings(cfg, mesh)
+    state_sh = {"params": params_sh,
+                "opt": {"m": params_sh, "v": params_sh,
+                        "step": NamedSharding(mesh, P())}}
+    if step_cfg.grad_compress:
+        state_sh["opt"]["ef"] = params_sh
 
     data = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                   global_batch=args.batch, seed=args.seed))
 
     def init_all():
-        params = init_from_specs(pspecs, args.seed, device=dev)
+        params = shard_tree(init_from_specs(pspecs, args.seed, device=dev),
+                            params_sh)
         return {"params": params,
                 "opt": init_train_state(cfg, params, step_cfg)}
+
+    def save(step, state, blocking=True):
+        whole = gather_tree(state, state_sh)
+        if mesh.rank == 0:
+            ckpt.save(args.ckpt_dir, step, whole, blocking=blocking)
 
     start = 0
     if args.ckpt_dir:
@@ -87,11 +107,12 @@ def main(argv=None):
         if start:
             print(f"resumed from step {start}")
             tmpl = init_all()
-            state = ckpt.restore(args.ckpt_dir, start, like_tree=tmpl)
+            state = ckpt.restore(args.ckpt_dir, start, like_tree=tmpl,
+                                 shardings=state_sh)
     else:
         state = init_all()
 
-    train_step = make_train_step(cfg, step_cfg)
+    train_step = make_train_step(cfg, mesh, step_cfg)
     params, opt = state["params"], state["opt"]
     del state
     t_last = time.perf_counter()
@@ -108,10 +129,9 @@ def main(argv=None):
                   f"lr {float(metrics['lr']):.2e}  ({dt:.2f}s/10steps)",
                   flush=True)
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(args.ckpt_dir, step + 1,
-                      {"params": params, "opt": opt}, blocking=False)
+            save(step + 1, {"params": params, "opt": opt}, blocking=False)
     if args.ckpt_dir:
-        ckpt.save(args.ckpt_dir, args.steps, {"params": params, "opt": opt})
+        save(args.steps, {"params": params, "opt": opt})
         ckpt.wait_for_async()
     print("done")
     return params

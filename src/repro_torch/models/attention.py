@@ -8,6 +8,14 @@ absorbed-matmul decode path (the W_UK / W_UV absorption trick).
 Caches are written in place where the reference returns a donated copy
 (`dynamic_update_slice`), and the same dict is returned.
 
+`kv_seq_shard` with a mesh keeps GQA's cache in the split-KV layout: every
+row of the batch, the sequence split over `kv_axis` ("data"), one block a
+rank.  The rest of the step splits the batch over the data-parallel axes,
+so the decode step gathers q, k and v across them on the way in, writes
+the new position on the rank that holds it, runs
+`layers.decode_attention_kv_sharded`, and keeps this rank's rows of the
+output; prefill writes the prompt's positions into each rank's block.
+
 `kernels=True` runs GQA's attention through the flash and decode attention
 kernels and MLA's `kv_norm` through the rmsnorm kernel.  MLA's prefill
 attention (q and k of D = qk_nope + qk_rope, v of D = v_dim) and its
@@ -23,8 +31,12 @@ import torch
 
 from repro_torch.models.layers import (NEG_INF, apply_mrope, apply_rope,
                                        blocked_attention, decode_attention,
-                                       rmsnorm)
+                                       decode_attention_kv_sharded, rmsnorm)
 from repro_torch.models.module import ParamSpec
+from repro_torch.sharding.collectives import rows
+from repro_torch.sharding.rules import all_gather, batch_axes
+
+KV_AXIS = ("data",)     # the split-KV axis (`decode_attention_kv_sharded`)
 
 
 # ---------------------------------------------------------------------------
@@ -44,10 +56,12 @@ def gqa_specs(d_model: int, n_heads: int, n_kv: int, head_dim: int,
 def gqa_attention(params, x, positions, *, n_heads, n_kv, head_dim,
                   rope="rope", rope_theta=1e4, mrope_sections=None,
                   mrope_positions=None, causal=True, cache=None,
-                  cur_len=None, block_q=512, block_kv=1024, cross_kv=None,
-                  kernels: bool = False):
+                  cur_len=None, mesh=None, kv_seq_shard=False, block_q=512,
+                  block_kv=1024, cross_kv=None, kernels: bool = False):
     """x: (B,S,D). cache: dict(k,v: (B,T,Hkv,Dh)) for decode and prefill,
-    written in place; cur_len: Python int (decode).
+    written in place; cur_len: Python int (decode).  `kv_seq_shard` with a
+    `mesh`: the cache is in the split-KV layout (module docstring) and x
+    holds this rank's rows.
 
     Returns (out, cache). cross_kv: (k, v) for encoder-decoder cross-attn
     (no rope, no cache update, non-causal over encoder length); it returns
@@ -70,7 +84,11 @@ def gqa_attention(params, x, positions, *, n_heads, n_kv, head_dim,
         q = apply_mrope(q, mrope_positions, mrope_sections, rope_theta)
         k = apply_mrope(k, mrope_positions, mrope_sections, rope_theta)
 
-    if cache is None:
+    if cache is not None and kv_seq_shard and mesh is not None:
+        out = _kv_sharded(q, k, v, cache, cur_len, mesh, causal=causal,
+                          block_q=block_q, block_kv=block_kv,
+                          kernels=kernels)
+    elif cache is None:
         out = blocked_attention(q, k, v, causal=causal, block_q=block_q,
                                 block_kv=block_kv, kernels=kernels)
     elif S == 1:  # decode step
@@ -85,6 +103,29 @@ def gqa_attention(params, x, positions, *, n_heads, n_kv, head_dim,
         cache["v"][:, :S] = v
 
     return out.reshape(B, S, -1) @ params["wo"], cache
+
+
+def _kv_sharded(q, k, v, cache, cur_len, mesh, *, causal, block_q,
+                block_kv, kernels):
+    """Attention over the split-KV cache layout: q, k, v hold this rank's
+    rows of a batch split over the data-parallel axes; the cache holds
+    every row and this rank's block of positions along `KV_AXIS`."""
+    B_all, Tl = cache["k"].shape[:2]
+    dp = batch_axes(mesh, B_all)
+    lo = mesh.index(KV_AXIS) * Tl
+    S = q.shape[1]
+    start = 0 if S > 1 else cur_len
+    kf, vf = all_gather(k, mesh, dp, 0), all_gather(v, mesh, dp, 0)
+    a, b = max(start, lo), min(start + S, lo + Tl)
+    if a < b:               # the new positions this rank's block holds
+        cache["k"][:, a - lo:b - lo] = kf[:, a - start:b - start]
+        cache["v"][:, a - lo:b - lo] = vf[:, a - start:b - start]
+    if S > 1:               # prefill: attention over the prompt itself
+        return blocked_attention(q, k, v, causal=causal, block_q=block_q,
+                                 block_kv=block_kv, kernels=kernels)
+    out = decode_attention_kv_sharded(all_gather(q, mesh, dp, 0), cache["k"],
+                                      cache["v"], cur_len + 1, mesh, KV_AXIS)
+    return rows(out, mesh, dp)
 
 
 def gqa_cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16):

@@ -19,6 +19,12 @@ As in the reference, a decoder given caches reads cross K/V from
 encoder output: on the cached (serving) path the encoder output reaches no
 logit (ROADMAP queue 3, item 7).  Only the uncached path (`caches=None`)
 projects the encoder output into cross K/V.
+
+With a `mesh`, both stacks take the batch whole on every rank and run this
+rank's rows (split as `transformer.decoder_forward` splits them), on
+parameter blocks laid out by `transformer.param_shardings`, each layer
+gathered before use; `encode` returns this rank's rows of the encoder
+output, which `decode_stack` takes.
 """
 from __future__ import annotations
 
@@ -30,8 +36,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import gelu_mlp, gelu_mlp_specs, layernorm
 from repro_torch.models.module import ParamSpec, stack_specs
-from repro_torch.models.transformer import (_index, _unstack, remat_layer,
-                                            resolve_kernels)
+from repro_torch.models.transformer import (_index, _layer_gather, _unstack,
+                                            param_shardings, remat_layer,
+                                            resolve_kernels, split_batch)
+from repro_torch.sharding.collectives import gather_params
 
 F32 = torch.float32
 
@@ -89,15 +97,33 @@ def _ln(p, x):
     return layernorm(x, p["scale"], p["bias"])
 
 
-def encode(cfg: ArchConfig, params, enc_embeds, *, kernels=None,
+def _placement(cfg, mesh, batch):
+    """(dp, a function gathering a whole top-level leaf group, a function
+    making a stacked group's layer gather) for `mesh` (identities without
+    one)."""
+    dp, *_ = split_batch(mesh, batch)
+    if mesh is None:
+        return dp, (lambda params, name: params[name]), (lambda name: None)
+    sh = param_shardings(cfg, mesh)
+    return (dp, lambda params, name: gather_params(params[name], sh[name], dp),
+            lambda name: _layer_gather(cfg, sh[name], dp, False))
+
+
+def encode(cfg: ArchConfig, params, enc_embeds, *, mesh=None, kernels=None,
            remat=False):
     """enc_embeds: (B, enc_len, D) from the stub conv frontend."""
     kernels = resolve_kernels(kernels, enc_embeds.device)
+    dp, whole, layer_gather = _placement(cfg, mesh, enc_embeds)
+    if mesh is not None:
+        enc_embeds = split_batch(mesh, enc_embeds)[1]
+    gather = layer_gather("enc_layers")
     B, T, D = enc_embeds.shape
     pos = torch.arange(T, device=enc_embeds.device)[None].expand(B, T)
     x = enc_embeds + sinusoidal(pos, D).to(enc_embeds.dtype)
 
     def layer(x, lp):
+        if gather is not None:
+            lp = gather(lp)
         h = _ln(lp["ln1"], x)
         y, _ = attn.gqa_attention(lp["attn"], h, pos, n_heads=cfg.n_heads,
                                   n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
@@ -108,11 +134,11 @@ def encode(cfg: ArchConfig, params, enc_embeds, *, kernels=None,
     layer = remat_layer(layer, bool(remat))
     for lp in _unstack(params["enc_layers"]):
         x = layer(x, lp)
-    return _ln(params["enc_norm"], x)
+    return _ln(whole(params, "enc_norm"), x)
 
 
-def decode_stack(cfg: ArchConfig, params, tokens, enc_out, *, caches=None,
-                 cur_len=None, kernels=None, remat=False):
+def decode_stack(cfg: ArchConfig, params, tokens, enc_out, *, mesh=None,
+                 caches=None, cur_len=None, kernels=None, remat=False):
     """tokens: (B,S). caches: dict(self_k/self_v (L,B,T,H,Dh),
     cross_k/cross_v (L,B,Tenc,H,Dh)), written in place, or None (the
     uncached forward, which projects `enc_out` into cross K/V; with caches
@@ -120,7 +146,11 @@ def decode_stack(cfg: ArchConfig, params, tokens, enc_out, *, caches=None,
     each layer (only without caches).
 
     Returns (hidden, caches)."""
-    embed = params["embed"]
+    dp, whole, layer_gather = _placement(cfg, mesh, tokens)
+    if mesh is not None:
+        tokens = split_batch(mesh, tokens)[1]
+    gather = layer_gather("dec_layers")
+    embed = whole(params, "embed")
     kernels = resolve_kernels(kernels, embed.device)
     B, S = tokens.shape
     base = 0 if cur_len is None else cur_len
@@ -133,6 +163,8 @@ def decode_stack(cfg: ArchConfig, params, tokens, enc_out, *, caches=None,
                  kernels=kernels)
 
     def layer(x, lp, cache_l):
+        if gather is not None:
+            lp = gather(lp)
         h = _ln(lp["ln1"], x)
         self_cache = None
         if cache_l is not None:
@@ -156,7 +188,7 @@ def decode_stack(cfg: ArchConfig, params, tokens, enc_out, *, caches=None,
     layer = remat_layer(layer, bool(remat) and caches is None)
     for i, lp in enumerate(_unstack(params["dec_layers"])):
         x = layer(x, lp, None if caches is None else _index(caches, i))
-    return _ln(params["dec_norm"], x), caches
+    return _ln(whole(params, "dec_norm"), x), caches
 
 
 def whisper_cache_specs(cfg: ArchConfig, batch: int, max_len: int):

@@ -14,7 +14,14 @@ float32 first: a bf16 x bf16 product is exact in float32.
 the expert products of `moe_ffn` through the port's hand-written kernels
 (`repro_torch.kernels`), which compute the TPU kernels' functions; each
 wrapper's docstring names how that differs from the plain math here.
-`decode_attention_kv_sharded` is not ported yet (ROADMAP queue 1, item 13).
+
+The reference's two `shard_map` regions run over a `sharding.rules.Mesh`
+with `torch.distributed` collectives: `decode_attention_kv_sharded`
+(flash-decoding split-KV over the ranks of `kv_axis`, plain PyTorch, as
+the reference's is plain `jnp`) and `moe_ffn(mesh=)` (tokens split over
+the data-parallel axes, each expert's d_ff over `model`, the output summed
+over `model` in bf16); `moe_local` is the region's body on one rank's
+block, which the decoder calls with its own layout.
 """
 from __future__ import annotations
 
@@ -28,6 +35,9 @@ from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch.models.module import ParamSpec
+from repro_torch.sharding.collectives import (all_reduce, copy_to,
+                                              mean_over, reduce_from, rows)
+from repro_torch.sharding.rules import all_gather, batch_axes
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -187,6 +197,41 @@ def decode_attention(q, k_cache, v_cache, cur_len: int, *,
     return out.reshape(B, 1, Hq, D).to(q.dtype)
 
 
+def decode_attention_kv_sharded(q, k_cache, v_cache, cur_len: int, mesh,
+                                kv_axis=("data",)):
+    """Long-context decode with the KV cache sharded along its sequence dim
+    across `kv_axis` (flash-decoding style distributed split-KV): each shard
+    computes partial (max, sum, acc) softmax statistics which are merged with
+    cross-shard collectives. Exact (same result as decode_attention).
+
+    q: (B, 1, Hq, D), the same on every rank; k_cache, v_cache: this rank's
+    block (B, T/n, Hkv, D), positions [i T/n, (i+1) T/n) on the i-th rank
+    along `kv_axis` (the reference's in_specs P(None, ax)).  The maxima
+    merge by an all-reduce MAX, `l * corr` and `acc * corr` by SUMs; every
+    rank returns the whole output.  A shard past `cur_len` is wholly masked
+    and its weight `corr` is 0."""
+    B, _, Hq, D = q.shape
+    _, Tl, Hkv, _ = k_cache.shape
+    G = Hq // Hkv
+    base = mesh.index(kv_axis) * Tl
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bthd->bhgt", qg, k_cache.float()) / math.sqrt(D)
+    valid = base + torch.arange(Tl, device=q.device) < cur_len
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)                                         # (B,Hkv,G)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgt,bthd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    # merge partial softmax stats across KV shards
+    m_all = all_reduce(m, mesh, kv_axis, torch.distributed.ReduceOp.MAX)
+    corr = torch.exp(m - m_all)
+    l_all = all_reduce(l * corr, mesh, kv_axis)
+    acc_all = all_reduce(acc * corr[..., None], mesh, kv_axis)
+    out = acc_all / torch.clamp_min(l_all, 1e-30)[..., None]
+    return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP / GLU
 # ---------------------------------------------------------------------------
@@ -250,11 +295,46 @@ def _ragged_dot(xs, w, group_sizes):
     return out
 
 
-def moe_ffn(params, x, *, top_k: int, impl: str = "capacity",
+def tp_slice(params, mesh, tp_axis: str = "model"):
+    """The MoE weights cut to this rank's d_ff slice over `tp_axis` (the
+    reference's in_specs P(None, None, tp) for gate / up, P(None, tp, None)
+    for down, and the shared experts' alike); the router stays whole.
+    Cut blocks are contiguous copies, as the expert GEMM kernel needs."""
+    if tp_axis not in mesh.axis_names or mesh.size(tp_axis) == 1:
+        return params
+    n, i = mesh.size(tp_axis), mesh.index(tp_axis)
+
+    def cut(w, dim):
+        f = w.shape[dim]
+        if f % n:
+            raise ValueError(f"d_ff {f} does not split over {n} "
+                             f"{tp_axis!r} ranks")
+        return w.narrow(dim, i * (f // n), f // n).contiguous()
+
+    out = {"router": params["router"], "gate": cut(params["gate"], 2),
+           "up": cut(params["up"], 2), "down": cut(params["down"], 1)}
+    if "shared" in params:
+        sp = params["shared"]
+        out["shared"] = {"gate": cut(sp["gate"], 1), "up": cut(sp["up"], 1),
+                         "down": cut(sp["down"], 0)}
+    return out
+
+
+def moe_ffn(params, x, *, top_k: int, mesh=None, dp_axes=("pod", "data"),
+            tp_axis: str = "model", impl: str = "capacity",
             capacity_factor: float = 1.25, kernels: bool = False):
-    """x: (B, S, D) -> (out, aux_loss). Token-local routing over one device
-    (the reference shards experts across a mesh; its collectives are
-    ROADMAP queue 1, item 13).
+    """x: (B, S, D) -> (out, aux_loss). Token-local routing; expert weights
+    sharded on d_ff across `tp_axis` (expert tensor parallelism -> one psum
+    per MoE layer).
+
+    Without a mesh, one device runs every token and every expert column.
+    With one (`sharding.rules.Mesh`), the reference's region over whole
+    arrays: every rank holds `x` and the weights whole; the tokens split
+    over `dp_axes` present in the mesh (none when B does not divide), each
+    rank takes its d_ff slice over `tp_axis` (`tp_slice`) and runs
+    `moe_local`, and every rank returns the whole output.  The capacity
+    C comes from each rank's own token count, so with more than one data
+    rank other tokens drop than on one device, as in the reference.
 
     impl='capacity' (default): GShard-style fixed-capacity scatter/gather
     dispatch + batched expert GEMMs; tokens beyond an expert's capacity are
@@ -266,6 +346,28 @@ def moe_ffn(params, x, *, top_k: int, impl: str = "capacity",
     `jax.lax.ragged_dot`) — exact (no drops). It has no kernel, so it
     raises with `kernels=True`.
     """
+    kw = dict(top_k=top_k, impl=impl, capacity_factor=capacity_factor,
+              kernels=kernels)
+    if mesh is None:
+        return moe_local(params, x, **kw)
+    dp = batch_axes(mesh, x.shape[0], dp_axes)
+    out, aux = moe_local(tp_slice(params, mesh, tp_axis), rows(x, mesh, dp),
+                         mesh=mesh, dp=dp, tp_axis=tp_axis, **kw)
+    return all_gather(out, mesh, dp, 0), aux
+
+
+def moe_local(params, x, *, top_k: int, mesh=None, dp=(),
+              tp_axis: str = "model", impl: str = "capacity",
+              capacity_factor: float = 1.25, kernels: bool = False):
+    """`moe_ffn` on one rank's block (the reference's `local_fn`): `x` this
+    rank's rows of a batch split over `dp`, the expert weights its d_ff
+    slice over `tp_axis` (`tp_slice`).  The expert products' output sums
+    over `tp_axis` in bf16 after rounding (`reduce_from`); the tokens and
+    the routing weights enter the d_ff-split work through `copy_to`, so
+    their gradients sum over `tp_axis`; `aux` is averaged over `dp`.
+    Returns (this rank's rows of the output, aux)."""
+    tp = tp_axis if mesh is not None and tp_axis in mesh.axis_names \
+        else None
     B, S, D = x.shape
     E = params["router"].shape[1]
     wg, wu, wd = params["gate"], params["up"], params["down"]
@@ -277,6 +379,9 @@ def moe_ffn(params, x, *, top_k: int, impl: str = "capacity",
     topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
     flat_e = topi.reshape(-1)                                  # (n*k,) token-major
     group_sizes = torch.bincount(flat_e, minlength=E)
+    w_slot = topv.reshape(-1).float()
+    if tp is not None:          # into the work split over d_ff
+        xf, w_slot = copy_to(xf, mesh, tp), copy_to(w_slot, mesh, tp)
 
     if impl == "capacity":
         gemm = moe_gemm if kernels else (
@@ -300,7 +405,6 @@ def moe_ffn(params, x, *, top_k: int, impl: str = "capacity",
         h = F.silu(gemm(buf, wg)) * gemm(buf, wu)              # (E, C, F)
         y_buf = gemm(h, wd)
         y = y_buf[flat_e, rank_c] * ok.to(y_buf.dtype)[:, None]
-        w_slot = topv.reshape(-1).float()
         out = torch.sum((y.float() * w_slot[:, None]).reshape(n, top_k, D),
                         dim=1)
     elif impl == "ragged":
@@ -313,7 +417,7 @@ def moe_ffn(params, x, *, top_k: int, impl: str = "capacity",
         h = F.silu(_ragged_dot(xs, wg, group_sizes)) * \
             _ragged_dot(xs, wu, group_sizes)
         y = _ragged_dot(h.to(xs.dtype), wd, group_sizes)
-        w_sorted = topv.reshape(-1)[order].float()
+        w_sorted = w_slot[order]
         out = torch.zeros((n, D), dtype=F32, device=x.device).index_add_(
             0, tok, y.float() * w_sorted[:, None])
     else:
@@ -323,8 +427,15 @@ def moe_ffn(params, x, *, top_k: int, impl: str = "capacity",
         sp = params["shared"]
         hs = F.silu(xf @ sp["gate"]) * (xf @ sp["up"])
         out = out + (hs @ sp["down"]).float()
+    out = out.to(x.dtype)
+    if tp is not None:
+        # reduce activations in bf16 (dots already accumulated fp32
+        # locally); halves expert-TP wire bytes
+        out = reduce_from(out, mesh, tp)
     # switch-style load-balance aux loss
     frac = group_sizes.float() / max(n * top_k, 1)
     imp = probs.mean(dim=0)
     aux = E * torch.sum(frac * imp)
-    return out.to(x.dtype).reshape(B, S, D), aux
+    if dp:
+        aux = mean_over(aux, mesh, dp)
+    return out.reshape(B, S, D), aux

@@ -19,6 +19,17 @@ cross entropy, each block under its own checkpoint, so the (B, S, V)
 logits never live at once.  A stacked parameter group is split into its
 layers by one `unbind` a leaf, whose backward stacks the layers' gradients
 at once.
+
+With a `mesh` (`sharding.rules.Mesh`), `decoder_forward` takes the whole
+token batch on every rank and splits its rows over the data-parallel
+axes (`rules.batch_axes`, the reference's `constrain(x, mesh, "batch",
+...)` with its divisibility fallback); the parameters are this rank's
+blocks by `param_shardings` (FSDP / ZeRO-3, as `rules.py` lays them out),
+each layer's gathered just before use (`collectives.gather_param`, inside
+the layer's checkpoint, so remat gathers again), the MoE experts' d_ff
+left split over "model" for `layers.moe_local`.  Dense layers then run on
+whole weights, where GSPMD would run tensor-parallel heads: the same
+function.  The hidden state returned holds this rank's rows.
 """
 from __future__ import annotations
 
@@ -33,9 +44,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (gelu_mlp, gelu_mlp_specs, glu_mlp,
-                                       glu_mlp_specs, layernorm, moe_ffn,
+                                       glu_mlp_specs, layernorm, moe_local,
                                        moe_specs, rmsnorm)
-from repro_torch.models.module import ParamSpec
+from repro_torch.models.module import ParamSpec, tree_map
+from repro_torch.sharding.collectives import gather_params, rows
+from repro_torch.sharding.rules import (P, NamedSharding, batch_axes,
+                                        tree_shardings)
 
 F32 = torch.float32
 
@@ -131,8 +145,9 @@ def rwkv_layer_specs(cfg: ArchConfig):
 # single layer application
 # ---------------------------------------------------------------------------
 
-def apply_mixer(cfg: ArchConfig, p, x, positions, *, cache=None,
-                cur_len=None, mrope_positions=None, kernels: bool = False):
+def apply_mixer(cfg: ArchConfig, p, x, positions, *, mesh=None, cache=None,
+                cur_len=None, mrope_positions=None, kv_seq_shard=False,
+                kernels: bool = False):
     """Returns (y, cache); a recurrent mixer's new state is copied into the
     cache's views in place."""
     if cfg.mixer == "gqa":
@@ -141,7 +156,7 @@ def apply_mixer(cfg: ArchConfig, p, x, positions, *, cache=None,
             head_dim=cfg.head_dim, rope=cfg.rope, rope_theta=cfg.rope_theta,
             mrope_sections=cfg.mrope_sections,
             mrope_positions=mrope_positions, cache=cache, cur_len=cur_len,
-            kernels=kernels)
+            mesh=mesh, kv_seq_shard=kv_seq_shard, kernels=kernels)
     if cfg.mixer == "mla":
         m = cfg.mla
         return attn.mla_attention(
@@ -173,17 +188,21 @@ def apply_mixer(cfg: ArchConfig, p, x, positions, *, cache=None,
     raise ValueError(cfg.mixer)
 
 
-def apply_layer(cfg: ArchConfig, p, x, positions, *, moe_layer=False,
-                cache=None, cur_len=None, mrope_positions=None,
+def apply_layer(cfg: ArchConfig, p, x, positions, *, mesh=None, dp=(),
+                moe_layer=False, cache=None, cur_len=None,
+                mrope_positions=None, kv_seq_shard=False,
                 kernels: bool = False, names: bool = False):
     """Pre-norm residual block. Returns (x, cache, aux_loss): the MoE
     layer's float32 load-balance loss, None for every other layer.
-    `names` tags the mixer and FFN outputs for the "names" remat policy."""
+    `names` tags the mixer and FFN outputs for the "names" remat policy.
+    With a `mesh`, x holds this rank's rows of a batch split over `dp` and
+    `p` is whole but for the MoE experts' d_ff slice (`decoder_forward`)."""
     aux = None
     h = _apply_norm(cfg, p["ln1"], x, kernels=kernels)
-    y, cache = apply_mixer(cfg, p["mixer"], h, positions, cache=cache,
-                           cur_len=cur_len, mrope_positions=mrope_positions,
-                           kernels=kernels)
+    y, cache = apply_mixer(cfg, p["mixer"], h, positions, mesh=mesh,
+                           cache=cache, cur_len=cur_len,
+                           mrope_positions=mrope_positions,
+                           kv_seq_shard=kv_seq_shard, kernels=kernels)
     if names:
         y = checkpoint_name(y, "mixer_out")
     x = x + y
@@ -198,8 +217,8 @@ def apply_layer(cfg: ArchConfig, p, x, positions, *, moe_layer=False,
     if "ffn" in p:
         h = _apply_norm(cfg, p["ln2"], x, kernels=kernels)
         if cfg.ffn == "moe" and moe_layer:
-            y, aux = moe_ffn(
-                p["ffn"], h, top_k=cfg.moe["top_k"],
+            y, aux = moe_local(
+                p["ffn"], h, top_k=cfg.moe["top_k"], mesh=mesh, dp=dp,
                 impl=cfg.moe.get("impl", "capacity"),
                 capacity_factor=cfg.moe.get("capacity_factor", 1.25),
                 kernels=kernels)
@@ -300,13 +319,56 @@ def remat_layer(fn, remat):
     return functools.partial(checkpoint, fn, **kw)
 
 
+def param_shardings(cfg: ArchConfig, mesh):
+    """The layout of the parameters a call with `mesh` takes: the
+    reference's `tree_shardings(build_param_specs(cfg), mesh)`."""
+    from repro_torch.models.zoo import build_param_specs
+    return tree_shardings(build_param_specs(cfg), mesh)
+
+
+def layer_shardings(stacked):
+    """One layer's shardings from a stacked group's (the layer axis, never
+    split, taken off)."""
+    return tree_map(lambda sh: NamedSharding(sh.mesh, P(*sh.spec[1:])),
+                    stacked)
+
+
+def _layer_gather(cfg, stacked_sh, dp, moe_layer):
+    """A function gathering one layer of a group laid out by `stacked_sh`
+    (None without a mesh); an MoE layer's FFN keeps its d_ff split over
+    "model" (`layers.moe_local`)."""
+    if stacked_sh is None:
+        return None
+    sh = layer_shardings(stacked_sh)
+    moe = cfg.ffn == "moe" and moe_layer
+    gate = sh["ffn"]["gate"] if moe else None
+    if moe and gate.mesh.size("model") > 1 and not any(
+            d == 2 and "model" in axes for d, axes in gate.dims()):
+        raise ValueError("the experts' d_ff does not split over the "
+                         "'model' axis")
+
+    def gather(lp):
+        if not moe:
+            return gather_params(lp, sh, dp)
+        out = gather_params({k: v for k, v in lp.items() if k != "ffn"},
+                            {k: v for k, v in sh.items() if k != "ffn"}, dp)
+        out["ffn"] = gather_params(lp["ffn"], sh["ffn"], dp,
+                                   keep=("model",))
+        return out
+
+    return gather
+
+
 def _run_layers(cfg, layers, x, positions, *, moe_layer=False, caches=None,
                 cur_len=None, mrope_positions=None, kernels: bool = False,
-                offset: int = 0, remat=False):
+                offset: int = 0, remat=False, mesh=None, dp=(), gather=None,
+                kv_seq_shard=False):
     """Apply a stacked layer group in order (the reference's `lax.scan`).
     layers: the group's per-layer trees (`_unstack`); caches: the group's
     cache tree stacked on axis 0, layer `i` at `offset + i`, written in
-    place, or None; remat: see `remat_layer` (only without caches).
+    place, or None; remat: see `remat_layer` (only without caches);
+    gather: puts a layer's parameter blocks together (`_layer_gather`),
+    inside the layer's checkpoint.
 
     Returns (x, aux): aux is the MoE layers' load-balance loss summed, or
     None."""
@@ -316,10 +378,14 @@ def _run_layers(cfg, layers, x, positions, *, moe_layer=False, caches=None,
         cache_i = None if caches is None else _index(caches, offset + i)
 
         def layer(x, lp=lp, cache_i=cache_i):
-            return apply_layer(cfg, lp, x, positions, moe_layer=moe_layer,
-                               cache=cache_i, cur_len=cur_len,
+            if gather is not None:
+                lp = gather(lp)
+            return apply_layer(cfg, lp, x, positions, mesh=mesh, dp=dp,
+                               moe_layer=moe_layer, cache=cache_i,
+                               cur_len=cur_len,
                                mrope_positions=mrope_positions,
-                               kernels=kernels, names=names)[::2]
+                               kv_seq_shard=kv_seq_shard, kernels=kernels,
+                               names=names)[::2]
 
         x, aux_l = remat_layer(layer, remat if caches is None else False)(x)
         if aux_l is not None:
@@ -338,19 +404,44 @@ def resolve_kernels(kernels, device: torch.device) -> bool:
     return bool(kernels)
 
 
-def decoder_forward(cfg: ArchConfig, params, tokens, *, positions=None,
-                    mrope_positions=None, caches=None, cur_len=None,
-                    kernels=None, remat=False):
+def split_batch(mesh, tokens, positions=None, mrope_positions=None):
+    """With a mesh: (dp, this rank's rows of tokens, positions and
+    M-RoPE positions (3, B, S)); without one: ((), the inputs)."""
+    if mesh is None:
+        return (), tokens, positions, mrope_positions
+    dp = batch_axes(mesh, tokens.shape[0])
+    if positions is not None:
+        positions = rows(positions, mesh, dp)
+    if mrope_positions is not None:
+        mrope_positions = rows(mrope_positions, mesh, dp, 1)
+    return dp, rows(tokens, mesh, dp), positions, mrope_positions
+
+
+def decoder_forward(cfg: ArchConfig, params, tokens, *, mesh=None,
+                    positions=None, mrope_positions=None, caches=None,
+                    cur_len=None, kv_seq_shard=False, kernels=None,
+                    remat=False):
     """tokens: (B,S) int. caches: the tree of `zoo.build_cache_specs`
     ({"layers": stacked cache tree}, plus "shared" for the hybrid stack and
     "dense_layers" for MoE) or None, written in place; cur_len: Python int
     or None; mrope_positions: (3,B,S) for M-RoPE, or None; remat: see
-    `remat_layer` (training, without caches).
+    `remat_layer` (training, without caches).  mesh: see the module
+    docstring (the caches are then laid out by `zoo.cache_shardings`, and
+    `kv_seq_shard` keeps GQA's in the split-KV layout).
 
     Returns (hidden: (B,S,D), caches, aux_loss): the MoE load-balance loss
     summed over layers, a float32 zero for the other models."""
     check_supported(cfg)
-    embed = params["embed"]
+    dp, tokens, positions, mrope_positions = split_batch(
+        mesh, tokens, positions, mrope_positions)
+    sh = None if mesh is None else param_shardings(cfg, mesh)
+
+    def whole(name):
+        if sh is None:
+            return params[name]
+        return gather_params(params[name], sh[name], dp)
+
+    embed = whole("embed")
     kernels = resolve_kernels(kernels, embed.device)
     B, S = tokens.shape[:2]
     if positions is None:
@@ -360,34 +451,44 @@ def decoder_forward(cfg: ArchConfig, params, tokens, *, positions=None,
     if mrope_positions is None and cfg.rope == "mrope":
         mrope_positions = positions[None].expand(3, B, S)
     x = embed[tokens]
-    run = dict(cur_len=cur_len, kernels=kernels, remat=remat)
+    del embed
+    run = dict(cur_len=cur_len, kernels=kernels, remat=remat, mesh=mesh,
+               dp=dp)
     aux = []
 
     def group(name):
         return None if caches is None else caches[name]
 
+    def gather(name, moe_layer=False):
+        return _layer_gather(cfg, None if sh is None else sh[name], dp,
+                             moe_layer)
+
     if cfg.hybrid:  # zamba2: groups of mamba layers + shared attention block
         every = cfg.hybrid["attn_every"]
         layers = _unstack(params["layers"])
+        shared = whole("shared_attn")
         for g in range(cfg.n_layers // every):
             x, _ = _run_layers(cfg, layers[g * every:(g + 1) * every], x,
                                positions, caches=group("layers"),
-                               offset=g * every, **run)
+                               offset=g * every, gather=gather("layers"),
+                               **run)
             x, _ = apply_shared_attn(
-                cfg, params["shared_attn"], x, positions,
+                cfg, shared, x, positions,
                 cache=None if caches is None else _index(caches["shared"], g),
                 cur_len=cur_len, kernels=kernels)
     else:
-        run["mrope_positions"] = mrope_positions
+        run.update(mrope_positions=mrope_positions, kv_seq_shard=kv_seq_shard)
         if "dense_layers" in params:
             x, _ = _run_layers(cfg, _unstack(params["dense_layers"]), x,
-                               positions, caches=group("dense_layers"), **run)
+                               positions, caches=group("dense_layers"),
+                               gather=gather("dense_layers"), **run)
+        moe = cfg.ffn == "moe"
         x, aux_l = _run_layers(cfg, _unstack(params["layers"]), x, positions,
-                               moe_layer=cfg.ffn == "moe",
-                               caches=group("layers"), **run)
+                               moe_layer=moe, caches=group("layers"),
+                               gather=gather("layers", moe), **run)
         if aux_l is not None:
             aux.append(aux_l)
-    x = _apply_norm(cfg, params["final_norm"], x, kernels=kernels)
+    x = _apply_norm(cfg, whole("final_norm"), x, kernels=kernels)
     return x, caches, aux[0] if aux else x.new_zeros((), dtype=F32)
 
 
@@ -427,9 +528,17 @@ def logits_f32(x, head):
     return out.reshape(*x.shape[:-1], head.shape[0])
 
 
-def lm_head(cfg: ArchConfig, params, x):
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return logits_f32(x, head)
+def head_of(cfg: ArchConfig, params, mesh=None, dp=()):
+    """The output head (the tied embedding or `lm_head`), whole (gathered
+    from this rank's block with a mesh)."""
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    if mesh is None:
+        return params[name]
+    return gather_params(params[name], param_shardings(cfg, mesh)[name], dp)
+
+
+def lm_head(cfg: ArchConfig, params, x, *, mesh=None, dp=()):
+    return logits_f32(x, head_of(cfg, params, mesh, dp))
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,16 @@ Caches are written in place.
 device, as the reference's runs no Pallas kernel: the CUDA kernels have no
 backward.  `input_specs` gives each cell's data arguments as meta tensors
 (shapes and dtypes, no storage).
+
+`mesh` (`sharding.rules.Mesh`): the batch (whole on every rank) splits
+over the data-parallel axes, the parameters are this rank's blocks
+(`transformer.param_shardings`), the caches its blocks by
+`cache_shardings`, and the logits (or the loss) come back whole on every
+rank.  `decode_step(kv_seq_shard=True)` runs GQA's decode attention
+split-KV over the "data" ranks (`layers.decode_attention_kv_sharded`),
+on caches laid out so by `cache_shardings(..., kv_seq_shard=True)` and
+filled by `prefill(..., kv_seq_shard=True)`; without a mesh it is the
+plain decode, as in the reference.
 """
 from __future__ import annotations
 
@@ -30,6 +40,9 @@ from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.module import ParamSpec, count_params, stack_specs
 from repro_torch.models.ssm import CONV_W
+from repro_torch.sharding.collectives import mean_over, rows
+from repro_torch.sharding.rules import (DEFAULT_RULES, all_gather,
+                                        batch_axes, tree_shardings)
 
 F32 = torch.float32
 
@@ -117,6 +130,27 @@ def build_cache_specs(cfg: ArchConfig, batch: int, max_len: int):
     return out
 
 
+def cache_shardings(cfg: ArchConfig, batch: int, max_len: int, mesh,
+                    kv_seq_shard: bool = False):
+    """The layout of the caches a call with `mesh` takes: every leaf's
+    batch dim split over the data-parallel axes (as the activations are),
+    the rest whole; with `kv_seq_shard`, GQA's K/V caches of the decoder
+    stack hold every row instead and their sequence split over "data"
+    (`attention.KV_AXIS`), which must divide `max_len`."""
+    specs = build_cache_specs(cfg, batch, max_len)
+    sh = tree_shardings(specs, mesh, rules={"batch": DEFAULT_RULES["batch"]})
+    if kv_seq_shard and cfg.mixer == "gqa" and not cfg.hybrid:
+        n = mesh.size(attn.KV_AXIS)
+        if max_len % n:
+            raise ValueError(f"max_len {max_len} does not split over {n} "
+                             f"{attn.KV_AXIS} ranks")
+        for g in ("layers", "dense_layers"):
+            if g in specs:
+                sh[g] = tree_shardings(specs[g], mesh,
+                                       rules={"kv_seq": attn.KV_AXIS})
+    return sh
+
+
 def kernel_launches(cfg: ArchConfig) -> tuple[dict, dict]:
     """Each CUDA kernel's launches in one prefill and in one decode step of
     `cfg` on the kernel path (kernels absent from a dict launch 0 times)."""
@@ -145,64 +179,89 @@ def kernel_launches(cfg: ArchConfig) -> tuple[dict, dict]:
 # entry points
 # ---------------------------------------------------------------------------
 
-def train_loss(cfg: ArchConfig, params, batch, *, remat=True):
+def _dp(mesh, batch: int):
+    return batch_axes(mesh, batch) if mesh is not None else ()
+
+
+def _whole_rows(x, mesh, dp):
+    return x if mesh is None else all_gather(x, mesh, dp, 0)
+
+
+def train_loss(cfg: ArchConfig, params, batch, *, mesh=None, remat=True):
     """batch: tokens (B,S), labels (B,S) [+ enc_embeds (B,Te,D) for
     whisper, mrope_positions (3,B,S) for M-RoPE].
 
     Returns the scalar float32 loss (CE + 0.01 x MoE aux), through the
-    plain layers (`kernels=False`); remat: `transformer.remat_layer`."""
+    plain layers (`kernels=False`); remat: `transformer.remat_layer`.
+    With a mesh, each rank's CE over its rows is averaged over the
+    data-parallel ranks (`collectives.mean_over`), and every rank holds
+    the loss."""
+    dp = _dp(mesh, batch["tokens"].shape[0])
+    labels = batch["labels"] if mesh is None else \
+        rows(batch["labels"], mesh, dp)
     if cfg.family == "encdec":
-        enc_out = encdec.encode(cfg, params, batch["enc_embeds"],
+        enc_out = encdec.encode(cfg, params, batch["enc_embeds"], mesh=mesh,
                                 kernels=False, remat=remat)
         x, _ = encdec.decode_stack(cfg, params, batch["tokens"], enc_out,
-                                   kernels=False, remat=remat)
-        return tfm.chunked_ce_loss(x, params["embed"], batch["labels"])
+                                   mesh=mesh, kernels=False, remat=remat)
+        loss = tfm.chunked_ce_loss(x, tfm.head_of(cfg, params, mesh, dp),
+                                   labels)
+        return loss if mesh is None else mean_over(loss, mesh, dp)
     x, _, aux = tfm.decoder_forward(
-        cfg, params, batch["tokens"],
+        cfg, params, batch["tokens"], mesh=mesh,
         mrope_positions=batch.get("mrope_positions"), kernels=False,
         remat=remat)
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    loss = tfm.chunked_ce_loss(x, head, batch["labels"])
+    loss = tfm.chunked_ce_loss(x, tfm.head_of(cfg, params, mesh, dp), labels)
+    if mesh is not None:
+        loss = mean_over(loss, mesh, dp)
     if cfg.ffn == "moe":
         loss = loss + 0.01 * aux
     return loss
 
 
-def prefill(cfg: ArchConfig, params, batch, caches, *, kernels=None):
+def prefill(cfg: ArchConfig, params, batch, caches, *, mesh=None,
+            kv_seq_shard=False, kernels=None):
     """Run the prompt, fill caches in place, return last-token float32
     logits (B, V) + caches.  batch: tokens (B,S) [+ enc_embeds (B,Te,D) for
-    whisper, mrope_positions (3,B,S) for M-RoPE]."""
+    whisper, mrope_positions (3,B,S) for M-RoPE].  kv_seq_shard (a port
+    keyword): the caches are in the split-KV layout (`cache_shardings`)."""
+    dp = _dp(mesh, batch["tokens"].shape[0])
     if cfg.family == "encdec":
-        enc_out = encdec.encode(cfg, params, batch["enc_embeds"],
+        enc_out = encdec.encode(cfg, params, batch["enc_embeds"], mesh=mesh,
                                 kernels=kernels)
         x, caches = encdec.decode_stack(cfg, params, batch["tokens"], enc_out,
-                                        caches=caches, cur_len=0,
+                                        mesh=mesh, caches=caches, cur_len=0,
                                         kernels=kernels)
-        return tfm.logits_f32(x[:, -1], params["embed"]), caches
+        logits = tfm.lm_head(cfg, params, x[:, -1], mesh=mesh, dp=dp)
+        return _whole_rows(logits, mesh, dp), caches
     x, caches, _ = tfm.decoder_forward(
-        cfg, params, batch["tokens"], caches=caches, cur_len=0,
-        mrope_positions=batch.get("mrope_positions"), kernels=kernels)
-    return tfm.lm_head(cfg, params, x[:, -1]), caches
+        cfg, params, batch["tokens"], mesh=mesh, caches=caches, cur_len=0,
+        mrope_positions=batch.get("mrope_positions"),
+        kv_seq_shard=kv_seq_shard, kernels=kernels)
+    logits = tfm.lm_head(cfg, params, x[:, -1], mesh=mesh, dp=dp)
+    return _whole_rows(logits, mesh, dp), caches
 
 
 def decode_step(cfg: ArchConfig, params, tokens, caches, cur_len: int, *,
-                kv_seq_shard=False, enc_out=None, kernels=None):
+                mesh=None, kv_seq_shard=False, enc_out=None, kernels=None):
     """One decode step. tokens: (B,1); cur_len: Python int, the number of
-    positions already in the cache; enc_out: whisper's encoder output.
+    positions already in the cache; enc_out: whisper's encoder output (as
+    `encdec.encode` returns it: this rank's rows with a mesh).
 
     Returns (float32 logits (B,V), caches written in place)."""
-    if kv_seq_shard:
-        raise NotImplementedError(
-            "kv_seq_shard (decode over a sequence-sharded cache) is not "
-            "ported yet: ROADMAP queue 1, item 13")
+    dp = _dp(mesh, tokens.shape[0])
     if cfg.family == "encdec":
         x, caches = encdec.decode_stack(cfg, params, tokens, enc_out,
-                                        caches=caches, cur_len=cur_len,
-                                        kernels=kernels)
-        return tfm.logits_f32(x[:, -1], params["embed"]), caches
-    x, caches, _ = tfm.decoder_forward(cfg, params, tokens, caches=caches,
-                                    cur_len=cur_len, kernels=kernels)
-    return tfm.lm_head(cfg, params, x[:, -1]), caches
+                                        mesh=mesh, caches=caches,
+                                        cur_len=cur_len, kernels=kernels)
+        logits = tfm.lm_head(cfg, params, x[:, -1], mesh=mesh, dp=dp)
+        return _whole_rows(logits, mesh, dp), caches
+    x, caches, _ = tfm.decoder_forward(cfg, params, tokens, mesh=mesh,
+                                       caches=caches, cur_len=cur_len,
+                                       kv_seq_shard=kv_seq_shard,
+                                       kernels=kernels)
+    logits = tfm.lm_head(cfg, params, x[:, -1], mesh=mesh, dp=dp)
+    return _whole_rows(logits, mesh, dp), caches
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,13 @@ per-step.
 hand-written CUDA kernels on the card and the plain model math on the CPU
 (see `repro_torch.models.zoo`).  Each step reads the sampled tokens back
 once (`tolist()`), the engine's only host sync.
+
+`mesh` (a `sharding.rules.Mesh`, or None for one device, where the
+reference always takes one): the engine keeps this rank's blocks of the
+weights (`transformer.param_shardings`) and of the caches
+(`zoo.cache_shardings`); every rank builds the same prompts and samples
+the same tokens from the whole logits.  On a mesh of one rank the blocks
+are the whole tensors and every step is the mesh-free engine's.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.vectorized import resolve_device
 from repro_torch.models import zoo
 from repro_torch.models.module import init_from_specs
-from repro_torch.models.transformer import resolve_kernels
+from repro_torch.models.transformer import param_shardings, resolve_kernels
+from repro_torch.sharding.rules import local_specs, shard_tree
 from repro_torch.serve.batching import SlotBatcher
 
 
@@ -42,15 +50,18 @@ class Request:
 
 
 class ServeEngine:
-    def __init__(self, cfg: ArchConfig, params, *, batch_slots: int = 4,
-                 max_len: int = 512, prompt_len: int = 64, device=None,
-                 kernels=None):
+    def __init__(self, cfg: ArchConfig, params, *, mesh=None,
+                 batch_slots: int = 4, max_len: int = 512,
+                 prompt_len: int = 64, device=None, kernels=None):
         dev = resolve_device(device)
         self.device = params["embed"].device
         if self.device.type != dev.type or dev.index not in (
                 None, self.device.index):
             raise ValueError(f"params lie on {self.device}, not on {dev}")
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            params = shard_tree(params, param_shardings(cfg, mesh))
         self.params = params
         self.kernels = resolve_kernels(kernels, self.device)
         self.B = batch_slots
@@ -60,6 +71,9 @@ class ServeEngine:
             # float32 products (an f32 config, the plain logits) stay float32
             torch.backends.cuda.matmul.allow_tf32 = False
         cspecs = zoo.build_cache_specs(cfg, batch_slots, max_len)
+        if mesh is not None:
+            cspecs = local_specs(cspecs, zoo.cache_shardings(
+                cfg, batch_slots, max_len, mesh))
         self.caches = init_from_specs(cspecs, 0, device=self.device)
         self.cur_len = 0
 
@@ -78,6 +92,7 @@ class ServeEngine:
         tokens = torch.as_tensor(prompts, device=self.device)
         logits, self.caches = zoo.prefill(self.cfg, self.params,
                                           {"tokens": tokens}, self.caches,
+                                          mesh=self.mesh,
                                           kernels=self.kernels)
         self.cur_len = S
         return torch.argmax(logits, dim=-1)
@@ -88,7 +103,7 @@ class ServeEngine:
         greedily sampled token per slot."""
         logits, self.caches = zoo.decode_step(
             self.cfg, self.params, tok[:, None], self.caches, self.cur_len,
-            kernels=self.kernels)
+            mesh=self.mesh, kernels=self.kernels)
         self.cur_len += 1
         return torch.argmax(logits, dim=-1)
 

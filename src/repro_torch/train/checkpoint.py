@@ -146,15 +146,15 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 def restore(ckpt_dir: str, step: int, like_tree=None, shardings=None, *,
             device=None):
-    """Load a checkpoint.  Without `like_tree`: {path: CPU tensor}.  With
-    it: a tree shaped as `like_tree`, each leaf in its like leaf's dtype,
-    on `device` (default: where the like leaf lies).  `shardings` (a
-    multi-device layout) is not ported: ROADMAP queue 1, item 13."""
+    """Load a checkpoint; optionally re-shard onto `shardings` (any mesh).
+
+    Without `like_tree`: {path: CPU tensor}.  With it: a tree shaped as
+    `like_tree`, each leaf in its like leaf's dtype, on `device` (default:
+    where the like leaf lies).  `shardings`: a tree shaped as `like_tree`
+    of `sharding.rules.NamedSharding` (or None leaves): each leaf comes
+    back as this rank's block of the whole array the manifest holds, so a
+    checkpoint saved on one mesh restores onto any other."""
     _require_zstandard()
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto shardings (a multi-device mesh) is not ported "
-            "yet: ROADMAP queue 1, item 13")
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -172,9 +172,14 @@ def restore(ckpt_dir: str, step: int, like_tree=None, shardings=None, *,
     if like_tree is None:
         return leaves_by_path
 
+    pairs = _flatten_with_paths(like_tree)
+    flat_sh = [None] * len(pairs) if shardings is None else \
+        [sh for _, sh in _flatten_with_paths(shardings)]
     out = []
-    for pathkey, like in _flatten_with_paths(like_tree):
+    for (pathkey, like), sh in zip(pairs, flat_sh):
         t = leaves_by_path[pathkey]
+        if sh is not None:
+            t = sh.shard(t)
         if isinstance(like, torch.Tensor):
             t = t.to(device=like.device if device is None else device,
                      dtype=like.dtype)

@@ -10,6 +10,11 @@ order.  The update runs in place under `torch.no_grad()`: parameters, `m`
 and `v` are overwritten with the values the reference returns as new
 arrays, which a full-width state needs (parameters, gradients and two
 float32 moments of llama3.2-3b hold 38 GB).
+
+`shardings` (a tree of `sharding.rules.NamedSharding`, for parameters
+held as this rank's blocks over a mesh) makes the clipping norm global:
+each leaf's sum of squares is summed over the ranks its blocks split
+over.  The update itself is elementwise, so each rank updates its blocks.
 """
 from __future__ import annotations
 
@@ -67,18 +72,33 @@ def opt_state_specs(param_specs):
             "step": ParamSpec((), torch.int32, None, init="zeros")}
 
 
-def global_norm(tree) -> torch.Tensor:
+def split_sum(x: torch.Tensor, sharding=None, op=None) -> torch.Tensor:
+    """`x`, a reduction over one rank's block, reduced (SUM, or `op`) over
+    the ranks the leaf's blocks split over (`x` itself without
+    `sharding`)."""
+    if sharding is None:
+        return x
+    from torch.distributed import ReduceOp
+
+    from repro_torch.sharding.collectives import all_reduce
+    axes = tuple(a for _, ax in sharding.dims() for a in ax)
+    return all_reduce(x, sharding.mesh, axes, op or ReduceOp.SUM)
+
+
+def global_norm(tree, shardings=None) -> torch.Tensor:
     leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
-                          for x in leaves))
+    shs = [None] * len(leaves) if shardings is None else \
+        tree_leaves(shardings)
+    return torch.sqrt(sum(split_sum(torch.sum(torch.square(x.to(F32))), sh)
+                          for x, sh in zip(leaves, shs)))
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state):
+def adamw_update(cfg: AdamWConfig, params, grads, state, *, shardings=None):
     """One AdamW step, in place: `params`, `state["m"]` and `state["v"]`
     are overwritten. Returns (params, new_state, metrics)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                             1.0)
     lr = schedule(cfg, step)

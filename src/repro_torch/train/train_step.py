@@ -11,19 +11,30 @@ moment tensors, overwritten.  Gradient compression quantizes each
 gradient to int8 with a per-tensor scale and carries the quantization
 error to the next step (error feedback, `ef`, also updated in place), the
 numerics of a compressed all-reduce.
+
+With a `mesh` (`sharding.rules.Mesh`), parameters and the optimizer state
+are this rank's blocks by `transformer.param_shardings` (FSDP / ZeRO-3),
+the batch is the global batch on every rank, and `zoo.train_loss` splits
+its rows over the data-parallel ranks, gathers each layer's weights
+before use and sums the gradients over those ranks in the gathers'
+backward (`sharding.collectives`); the clipping norm and the int8 scales
+are taken over whole leaves.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed import ReduceOp
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as tfm
 from repro_torch.models import zoo
 from repro_torch.models.module import (ParamSpec, tree_leaves, tree_map,
                                        tree_unflatten)
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
-                                         init_opt_state, opt_state_specs)
+                                         init_opt_state, opt_state_specs,
+                                         split_sum)
 
 F32 = torch.float32
 
@@ -36,26 +47,31 @@ class TrainStepConfig:
     opt: AdamWConfig = AdamWConfig()
 
 
-def _quantize_int8(g):
-    scale = torch.clamp_min(torch.max(torch.abs(g)), 1e-8) / 127.0
+def _quantize_int8(g, sharding=None):
+    amax = split_sum(torch.max(torch.abs(g)), sharding, ReduceOp.MAX)
+    scale = torch.clamp_min(amax, 1e-8) / 127.0
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
 @torch.no_grad()
-def compress_grads(grads, ef):
+def compress_grads(grads, ef, shardings=None):
     """int8 error-feedback compression: returns (decompressed grads, new
     ef).  The new error is written into `ef` in place (the returned `ef`
     is the one given), as the optimizer updates its moments.
-    `torch.round` rounds half to even, as `jnp.round` does."""
-    def one(g, e):
+    `torch.round` rounds half to even, as `jnp.round` does.  `shardings`:
+    each leaf's scale is taken over the whole leaf from its blocks."""
+    def one(g, e, sh):
         gf = e.add_(g.to(F32))            # g + e, where e was
-        q, scale = _quantize_int8(gf)
+        q, scale = _quantize_int8(gf, sh)
         deq = q.to(F32) * scale
         gf.sub_(deq)                      # the carried error g + e - deq
         return deq.to(g.dtype)
 
-    out = [one(g, e) for g, e in zip(tree_leaves(grads), tree_leaves(ef))]
+    leaves = tree_leaves(grads)
+    shs = [None] * len(leaves) if shardings is None else \
+        tree_leaves(shardings)
+    out = [one(g, e, sh) for g, e, sh in zip(leaves, tree_leaves(ef), shs)]
     return tree_unflatten(grads, out), ef
 
 
@@ -93,15 +109,17 @@ def _split_batch(batch: dict, mb: int) -> list[dict]:
     return out
 
 
-def make_train_step(cfg: ArchConfig, step_cfg: TrainStepConfig):
+def make_train_step(cfg: ArchConfig, mesh, step_cfg: TrainStepConfig):
     """Returns train_step(params, opt_state, batch) -> (params, state,
-    metrics); params and the moments are updated in place."""
+    metrics); params and the moments are updated in place.  mesh: None
+    (one device) or a `sharding.rules.Mesh` (module docstring)."""
+    shardings = None if mesh is None else tfm.param_shardings(cfg, mesh)
 
     def value_and_grad(params, batch):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         with torch.enable_grad():
             loss = zoo.train_loss(cfg, tree_unflatten(params, leaves), batch,
-                                  remat=step_cfg.remat)
+                                  mesh=mesh, remat=step_cfg.remat)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
         return loss.detach(), tree_unflatten(params, list(grads))
@@ -127,11 +145,11 @@ def make_train_step(cfg: ArchConfig, step_cfg: TrainStepConfig):
     def train_step(params, opt_state, batch):
         loss, grads = grads_of(params, batch)
         if step_cfg.grad_compress:
-            grads, new_ef = compress_grads(grads, opt_state["ef"])
+            grads, new_ef = compress_grads(grads, opt_state["ef"], shardings)
         state = {k: v for k, v in opt_state.items() if k != "ef"}
         del opt_state
         new_params, new_state, metrics = adamw_update(
-            step_cfg.opt, params, grads, state)
+            step_cfg.opt, params, grads, state, shardings=shardings)
         if step_cfg.grad_compress:
             new_state["ef"] = new_ef
         metrics["loss"] = loss

@@ -1,0 +1,102 @@
+"""Inputs and reference results of the multi-device tests
+(`test_torch_{mesh,multidevice}.py`), computed in the pytest process with
+the JAX package on its host devices; the gloo ranks get only the numpy
+inputs (`_torch_mesh_worker`)."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+from _torch_inputs import TOL, normal
+from _torch_mesh_worker import to_wire
+
+from repro.launch.mesh import compat_make_mesh, compat_set_mesh
+from repro.models import layers as ref_layers
+from repro.models.module import init_from_specs as ref_init
+
+from repro_torch.models import layers
+
+
+def kv_cases(n: int) -> list:
+    """q (2, 1, 4, 16) against a cache of T 32 (2 KV heads), in float32
+    and bfloat16; a `cur_len` of 32, and one that leaves the shards past
+    the first wholly masked at n >= 4."""
+    short = 5 if n >= 4 else 9
+    out = []
+    for i, (dtype, cur_len) in enumerate([("float32", 32), ("float32", short),
+                                          ("bfloat16", 32),
+                                          ("bfloat16", short)]):
+        out.append({"q": normal((2, 1, 4, 16), 10 * n + i),
+                    "k": normal((2, 32, 2, 16), 10 * n + i + 100),
+                    "v": normal((2, 32, 2, 16), 10 * n + i + 200),
+                    "cur_len": cur_len, "dtype": dtype})
+    return out
+
+
+def kv_reference(case, n: int):
+    """(the reference's split-KV decode on an (n,) "data" mesh, the port's
+    one-device `decode_attention`), as float32 numpy."""
+    jd = getattr(jnp, case["dtype"])
+    q, k, v = (jnp.asarray(case[x]).astype(jd) for x in ("q", "k", "v"))
+    mesh = compat_make_mesh((n,), ("data",))
+    with compat_set_mesh(mesh):
+        want = ref_layers.decode_attention_kv_sharded(
+            q, k, v, jnp.int32(case["cur_len"]), mesh)
+    td = getattr(torch, case["dtype"])
+    plain = layers.decode_attention(
+        *(torch.as_tensor(case[x]).to(td) for x in ("q", "k", "v")),
+        case["cur_len"])
+    return np.asarray(want, np.float32), plain.float().numpy()
+
+
+def _moe_params(dtype: str):
+    specs = ref_layers.moe_specs(32, 24, n_routed=8, n_shared=1,
+                                 dtype=getattr(jnp, dtype))
+    rp = ref_init(specs, jax.random.PRNGKey(0))
+    # a wide router makes the top-k choice and its weights count
+    return dict(rp, router=jnp.asarray(normal((32, 8), 1, 0.5)))
+
+
+def moe_cases(meshes) -> list:
+    """For each (data, model) mesh: float32 at capacity factor 1.25,
+    bfloat16 at 0.5 (tokens drop, and which depends on the data split),
+    and a batch of 3 that no data axis divides (dp = ())."""
+    out = []
+    for mesh in meshes:
+        for dtype, cf, B in (("float32", 1.25, 4), ("bfloat16", 0.5, 4),
+                             ("bfloat16", 1.25, 3)):
+            rp = _moe_params(dtype)
+            out.append({"id": f"{mesh}-{dtype}-{cf}-{B}", "mesh": mesh,
+                        "dtype": dtype, "cf": cf,
+                        "x": normal((B, 16, 32), 2),
+                        "params": to_wire(jax.tree.map(np.asarray, rp))})
+    return out
+
+
+def check_moe(case, got: list):
+    """Every rank's `moe_ffn(mesh=)` output and aux against the reference's
+    on a mesh of the same shape; at capacity factor 0.5 with more than
+    one data rank, also unlike the one-device result (the capacity comes
+    from each rank's own tokens, as in the reference)."""
+    rp = _moe_params(case["dtype"])
+    jd = getattr(jnp, case["dtype"])
+    mesh = compat_make_mesh(case["mesh"], ("data", "model"))
+    fn = jax.jit(functools.partial(ref_layers.moe_ffn, top_k=2, mesh=mesh,
+                                   dp_axes=("data",),
+                                   capacity_factor=case["cf"]))
+    with compat_set_mesh(mesh):
+        want, want_aux = fn(rp, jnp.asarray(case["x"]).astype(jd))
+    want = np.asarray(want, np.float32)
+    for r in got:
+        assert r["id"] == case["id"]
+        np.testing.assert_allclose(r["out"], want, **TOL[case["dtype"]])
+        np.testing.assert_allclose(r["aux"], float(want_aux), rtol=1e-6)
+    if case["cf"] < 1 and case["mesh"][0] > 1:
+        from repro_torch.interop import params_from_numpy
+        one, _ = layers.moe_ffn(
+            params_from_numpy(jax.tree.map(np.asarray, rp), "cpu"),
+            torch.as_tensor(case["x"]).to(getattr(torch, case["dtype"])),
+            top_k=2, capacity_factor=case["cf"])
+        assert not np.allclose(one.float().numpy(), want,
+                               **TOL[case["dtype"]])

@@ -82,8 +82,11 @@ def test_checkpoint_roundtrip(zstd, tmp_path):
     flat = ckpt.restore(str(tmp_path), 7)
     assert flat["['step']"].dtype == torch.int32
     _assert_bit_equal(flat["['params']/['embed']"], params["embed"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ckpt.restore(str(tmp_path), 7, like_tree=tree, shardings=[None])
+    # a shardings tree of None leaves (no layout) restores the same leaves
+    none = ckpt.restore(str(tmp_path), 7, like_tree=tree, device="cpu",
+                        shardings=tree_map(lambda _: None, tree))
+    for a, b in zip(tree_leaves(restored), tree_leaves(none)):
+        _assert_bit_equal(b, a)
 
 
 def test_checkpoint_atomic_no_partial(zstd, tmp_path):

@@ -6,7 +6,10 @@ docstring examples alike).  A change to either side that is not made to
 the other fails here.  `serve/__init__.py` differs only in its docstring
 (the port's token engine is torch, not jax), so there its code is held;
 `api/session.py` differs only by the port's `device` keyword, so there the
-code is held with that keyword taken out."""
+code is held with that keyword taken out.  The sweep CLIs `run_shard`,
+`merge_stores` and `sweep_top` (`repro_torch/tools/`) are held by their
+code against the reference's `tools/`, the path set-up and the module
+docstring taken out."""
 import ast
 import re
 from pathlib import Path
@@ -110,3 +113,26 @@ def test_session_equals_reference_but_device():
     port = (PORT / rel).read_text()
     assert "device" in port
     assert _session_code(port) == _session_code(ported((REF / rel).read_text()))
+
+
+def _strip_path_hack(text: str) -> str:
+    """The module's code without its docstring and without the statement
+    that puts `src` on `sys.path` (the reference's CLIs run as scripts;
+    the port's run as `python -m repro_torch.tools.<name>`)."""
+    tree = ast.parse(text)
+    body = [s for s in tree.body if not (
+        isinstance(s, ast.Expr) and isinstance(s.value, ast.Call)
+        and ast.unparse(s.value.func) == "sys.path.insert")]
+    return _code(ast.unparse(ast.Module(body=body, type_ignores=[])))
+
+
+@pytest.mark.parametrize("name", ["run_shard", "merge_stores", "sweep_top"])
+def test_tool_code_equals_reference(name):
+    """The port's sweep CLIs are the reference's `tools/<name>.py` with
+    `repro.` rewritten, the path hack taken out and the module docstring
+    naming the `-m` invocation (`trace_export` adds `--device`, and is
+    held by its outputs in `test_torch_tools.py`)."""
+    want = _strip_path_hack(ported((ROOT / "tools" / f"{name}.py")
+                                   .read_text()))
+    got = _strip_path_hack((PORT / "tools" / f"{name}.py").read_text())
+    assert got == want

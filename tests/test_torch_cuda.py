@@ -795,7 +795,7 @@ def _train_once(cfg, params, batch, step_cfg):
     from repro_torch.train.train_step import init_train_state, make_train_step
     params = tree_map(torch.clone, params)
     state = init_train_state(cfg, params, step_cfg)
-    return make_train_step(cfg, step_cfg)(params, state, batch)
+    return make_train_step(cfg, None, step_cfg)(params, state, batch)
 
 
 def _held(a, b, rtol, b1=0.9, eps=1e-8):

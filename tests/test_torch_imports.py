@@ -8,13 +8,20 @@ among them), a tiny whisper runs `zoo.prefill` and `zoo.decode_step`,
 runtime (`repro_torch.api`, `repro_torch.obs`, `repro_torch.serve.
 simulator`) runs a small traced serial sweep, and the training entry point
 (`repro_torch.launch.train`) takes two steps, with the planner's and the
-fault-tolerance modules imported.  `import repro_torch.api.
-session` loads no torch, so a spawned sweep worker does not pay for it."""
+fault-tolerance modules imported, the sweep CLIs (`repro_torch.tools`)
+run, and the multi-device layer (`repro_torch.sharding`,
+`repro_torch.launch.mesh`, `repro_torch.train.pipeline`) serves and takes
+a pipeline step on a one-rank mesh.  Each new module of the CLIs and the
+multi-device layer, imported alone, loads neither.  `import repro_torch.
+api.session` and the sweep CLIs load no torch, so a spawned sweep worker
+does not pay for it."""
 import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -94,6 +101,34 @@ assert bool(torch.isfinite(params["embed"]).all())
 for mod in ("core.planner", "train.fault_tolerance", "train.checkpoint",
             "train.optimizer", "train.train_step", "train.data"):
     assert f"repro_torch.{mod}" in names
+for mod in ("tools.run_shard", "tools.merge_stores", "tools.sweep_top",
+            "tools.trace_export", "sharding.rules", "sharding.collectives",
+            "launch.mesh", "train.pipeline"):
+    assert f"repro_torch.{mod}" in names
+import tempfile
+from repro_torch.tools import sweep_top, trace_export
+with tempfile.TemporaryDirectory() as d:
+    assert trace_export.main(["--out", d, "--device", "cpu"]) == 0
+    assert "fleet: 0/0 live" in sweep_top.render(
+        sweep_top.fleet_snapshot([], []))
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.train.pipeline import make_pipeline_loss
+mesh = make_host_mesh(device_type="cpu")
+cfg = reduce_config(ARCHS["llama3.2-3b"], n_layers=2, d_model=64, d_ff=128,
+                    vocab=128)
+params = init_from_specs(build_param_specs(cfg), 0, device="cpu")
+engine = ServeEngine(cfg, params, mesh=mesh, batch_slots=2, max_len=12,
+                     prompt_len=8, device="cpu")
+reqs = engine.serve([Request(prompt=np.arange(1, 9), max_new_tokens=3)])
+assert len(reqs[0].out_tokens) == 3
+from repro_torch.models.module import tree_map
+from repro_torch.sharding.rules import Mesh
+pipe = Mesh((1, 1), ("pipe", "data"), device_type="cpu")
+p1 = dict(params, layers=tree_map(lambda a: a[None], params["layers"]))
+toks = torch.ones(2, 8, dtype=torch.long)
+loss = make_pipeline_loss(cfg, pipe, n_stages=1, n_microbatches=2)(
+    p1, {"tokens": toks, "labels": toks})
+assert bool(torch.isfinite(loss))
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 print(len(names), "modules")
 """
@@ -140,10 +175,35 @@ def test_port_runs_with_jax_and_repro_blocked():
 def test_sweep_runtime_imports_no_torch():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import sys; import repro_torch.api.session, repro_torch.api, "
-            "repro_torch.obs, repro_torch.serve, repro_torch.launch.serve; "
+            "repro_torch.obs, repro_torch.serve, repro_torch.launch.serve, "
+            "repro_torch.tools.run_shard, repro_torch.tools.merge_stores, "
+            "repro_torch.tools.sweep_top, repro_torch.tools.trace_export; "
             "print(sorted(m for m in ('torch', 'jax', 'repro') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("mods", [
+    ("tools.run_shard", "tools.merge_stores", "tools.sweep_top",
+     "tools.trace_export"),
+    ("sharding.rules", "sharding.collectives"),
+    ("launch.mesh",),
+    ("train.pipeline",)], ids=["tools", "sharding", "mesh", "pipeline"])
+def test_new_modules_alone_load_neither_jax_nor_repro(mods):
+    """Each module of the CLIs and the multi-device layer, imported by
+    itself into a fresh interpreter, leaves `jax` and `repro` unloaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import importlib, sys\n"
+            f"for m in {list(mods)!r}:\n"
+            "    importlib.import_module('repro_torch.' + m)\n"
+            "    bad = [k for k in ('jax', 'jaxlib', 'repro') "
+            "if k in sys.modules]\n"
+            "    assert not bad, (m, bad)\n"
+            "print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

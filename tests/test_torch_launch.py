@@ -381,7 +381,9 @@ def _train(argv, capsys):
 
 def test_launch_train_runs_and_logs_as_the_reference(capsys):
     params, out = _train(SMOKE + ["--steps", "3"], capsys)
-    assert out[0] == "arch=llama3.2-3b-smoke device=cpu"
+    # the reference logs its mesh beside the arch; the port also its device
+    assert out[0] == "arch=llama3.2-3b-smoke device=cpu " \
+        "mesh={'data': 1, 'model': 1}"
     steps = [STEP_LINE.match(line) for line in out[1:-1]]
     assert all(steps), out
     assert [int(m.group(1)) for m in steps] == [0, 2]
@@ -407,9 +409,13 @@ def test_launch_train_resumes_from_its_checkpoint(tmp_path, capsys):
 
 
 def test_launch_train_refuses_a_production_mesh():
-    from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        train.main(SMOKE + ["--production-mesh"])
+    """One process is a world of one rank: the (16, 16) production mesh
+    raises the reference's error for too few devices (launch.serve too)."""
+    from repro_torch.launch import serve, train
+    for main, argv in ((train.main, SMOKE), (serve.main, ["--device", "cpu"])):
+        with pytest.raises(ValueError, match="must be >= the product of "
+                           r"mesh_shape \(16, 16\)"):
+            main(argv + ["--production-mesh"])
 
 
 def test_input_specs_match_the_reference():

@@ -278,16 +278,52 @@ def test_arch_smoke_prefill_decode(arch):
                                    **tol)
 
 
-def test_kv_seq_shard_and_kernels_off_the_card_raise():
+def test_kernels_off_the_card_raise():
     cfg = reduce_config(ARCHS["llama3.2-3b"])
     params = init_from_specs(zoo.build_param_specs(cfg), 0, device="cpu")
     caches = init_from_specs(zoo.build_cache_specs(cfg, 1, 8), 0,
                              device="cpu")
     tok = torch.zeros(1, 1, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        zoo.decode_step(cfg, params, tok, caches, 0, kv_seq_shard=True)
     with pytest.raises(ValueError, match="kernels=True"):
         zoo.decode_step(cfg, params, tok, caches, 0, kernels=True)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_kv_seq_shard_on_one_rank_mesh_equals_unsharded_step(dtype, tol):
+    """`decode_step(kv_seq_shard=True)` on a one-rank host mesh (no process
+    group: every collective skipped) runs the split-KV decode
+    (`decode_attention_kv_sharded`, which normalises p after PV) and
+    equals the plain step (softmax, then PV) within the kernels'
+    tolerances (`tests/test_kernels.py:17-19`); without a mesh it is the
+    plain step, as in the reference."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device_type="cpu")
+    assert mesh.shape == {"data": 1, "model": 1}
+    cfg = dataclasses.replace(reduce_config(ARCHS["llama3.2-3b"]),
+                              dtype=dtype)
+    params = init_from_specs(zoo.build_param_specs(cfg), 0, device="cpu")
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(1, cfg.vocab, (2, 8)))
+    got, want, plain = [], [], []
+    # the plain step first; the others feed its tokens
+    for out, kw in ((want, {}), (got, dict(mesh=mesh, kv_seq_shard=True)),
+                    (plain, dict(kv_seq_shard=True))):
+        caches = init_from_specs(zoo.build_cache_specs(cfg, 2, 16), 0,
+                                 device="cpu")
+        logits, caches = zoo.prefill(cfg, params, {"tokens": prompt},
+                                     caches, **kw)
+        for t in range(3):
+            out.append(logits)
+            tok = torch.argmax(want[t] if out is not want else logits,
+                               -1)[:, None]
+            logits, caches = zoo.decode_step(cfg, params, tok, caches,
+                                             8 + t, **kw)
+        out.append(logits)
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(p, w)
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("name,kernel,per_prefill,per_step", [

@@ -103,7 +103,7 @@ def test_train_steps_match_the_reference(tiny, case):
     rstep = jax.jit(ref_make_step(rc, mesh, rcfg))
     rstate = ref_init_state(rc, rparams, rcfg)
     params = params_from_numpy(jax.tree.map(np.asarray, rparams), "cpu")
-    step = make_train_step(pc, pcfg)
+    step = make_train_step(pc, None, pcfg)
     state = init_train_state(pc, params, pcfg)
     rp = rparams
     for b in batches:
@@ -246,7 +246,7 @@ def test_train_loss_decreases():
     cfg, params = _port_tiny()
     scfg = TrainStepConfig(opt=AdamWConfig(lr=3e-3, warmup_steps=2,
                                            total_steps=30))
-    step = make_train_step(cfg, scfg)
+    step = make_train_step(cfg, None, scfg)
     state = init_train_state(cfg, params, scfg)
     data = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8))
     losses = []
@@ -266,7 +266,7 @@ def test_microbatch_equivalence():
     for mb in (1, 2):
         scfg = TrainStepConfig(microbatches=mb, remat=False,
                                opt=AdamWConfig(lr=1e-3))
-        step = make_train_step(cfg, scfg)
+        step = make_train_step(cfg, None, scfg)
         p2, _, m = step(tree_map(torch.clone, params),
                         init_train_state(cfg, params, scfg), batch)
         outs[mb] = (p2, float(m["loss"]))
