@@ -101,6 +101,22 @@ non-zero and prints no `ok` line:
              step on the card against the CPU, microbatches 2 against 1
              and remat against none on the card, and a blocking and an
              async checkpoint round trip where zstandard imports;
+   dryrun  — the dry run (`repro_torch.launch.dryrun`: one run on fake
+             tensors of rank 0's program over an abstract mesh, counted by
+             `analysis.hlo`'s recorder, the H100 roofline of
+             `analysis.roofline`), with every launch count set to 0 just
+             before it and 0 after: at the train shape (llama3.2-3b, B 8 x
+             S 1024, full remat, a (1, 1) mesh) its FLOPs against
+             FlopCounterMode over the same step on the card and its
+             argument bytes against the memory those tensors take there
+             (each within DRY_TOL), its argument plus temp bytes against
+             the card's peak, its roofline step time and MFU against the
+             card's step; its memory term of one plain decode step (4
+             slots) against the card's; then the production meshes: every
+             config at decode_32k and train_4k on (16, 16) and
+             llama3.2-3b's train_4k on (2, 16, 16), each OK or SKIP, none
+             FAIL, cut to DRY_DEPTH layers and without prefill_32k so the
+             phase stays within DRY_BUDGET_S;
 8. mesh    — the multi-device layer on a one-rank NCCL process group (a
              file:// store, no network) under `make_host_mesh()`, (1, 1) on
              cuda: llama3.2-3b through `ServeEngine(mesh=)` with the
@@ -249,6 +265,27 @@ TRAIN_F32 = {"depth": 2, "batch": 1, "seq": 128, "cpu_tol": 1e-4,
 # ranks sharing the card where gloo lets them.
 MESH_ARCH, MESH_MOE = "llama3.2-3b", "deepseek-moe-16b"
 PIPE = {"batch": 8, "seq": 1024, "microbatches": 4}
+# The dryrun phase. (a) The dry run held against the card at the train
+# phase's shape (TRAIN_ARCH, B 8 x S 1024, full remat, on a (1, 1) mesh) and
+# at a serving decode step (4 slots over a cache of MAX_LEN, cur_len
+# MAX_LEN - 1): its FLOPs against FlopCounterMode over one step on the card
+# and its argument bytes against the memory the same tensors take there,
+# each within DRY_TOL (the same program and tensors, counted twice); its
+# memory, step time and MFU beside the card's, reported. (b) The production
+# meshes: every config at DRY_SHAPES on (16, 16) and TRAIN_ARCH's train_4k
+# on (2, 16, 16), each cell OK or SKIP and none FAIL. The phase must stay
+# within DRY_BUDGET_S, so (b) is cut: prefill_32k runs in no cell (it
+# unrolls 2048 attention block pairs a layer: minutes a cell on the host),
+# and each config runs at DRY_DEPTH layers (1 where absent; whisper also 1
+# encoder layer): the MoE configs their dense first layer and one MoE
+# layer, zamba2-2.7b one group of its hybrid stack. `python -m
+# repro_torch.launch.dryrun --both-meshes` runs the full grid.
+DRY_TOL = 0.01
+DRY_SHAPES = ("train_4k", "decode_32k")
+DRY_DEPTH = {"zamba2-2.7b": 6, "deepseek-moe-16b": 2, "deepseek-v2-236b": 2}
+DRY_TIMED = 3
+DRY_DECODE_STEPS = 20
+DRY_BUDGET_S = 120.0
 KERNEL_SHAPES = [(1, 1), (5, 7), (1280, 17), (2048, 28), (40, 33), (300, 257),
                  (160, 17), (32, 17)]
 TIMED_SHAPES = [(1280, 17), (2048, 28)]
@@ -2825,6 +2862,191 @@ def train_phase(dev, counters) -> dict:
         "grad_compress": compressed}
 
 
+@contextlib.contextmanager
+def registered(registry: dict, entries: dict):
+    """`registry` with `entries` added or replaced inside the block, as it
+    was after it."""
+    saved = {k: registry[k] for k in entries if k in registry}
+    registry.update(entries)
+    try:
+        yield
+    finally:
+        for k in entries:
+            registry.pop(k, None)
+        registry.update(saved)
+
+
+def dry_cut(cfg):
+    """`cfg` at the dryrun phase's production-mesh depth (DRY_DEPTH)."""
+    import dataclasses
+    over = {"n_layers": DRY_DEPTH.get(cfg.name, 1)}
+    if cfg.enc:
+        over["enc"] = dict(cfg.enc, enc_layers=1)
+    return dataclasses.replace(cfg, **over)
+
+
+def dry_cell_line(report: dict, seconds: float) -> dict:
+    if report.get("skipped"):
+        return {"status": "SKIP", "seconds": seconds, "why": report["why"]}
+    r, m = report["roofline"], report["memory"]
+    return {"status": "OK", "seconds": seconds,
+            **{k: r[k] for k in ("t_compute_s", "t_memory_s",
+                                 "t_collective_s", "bottleneck",
+                                 "useful_flops_ratio", "mfu", "flops",
+                                 "xla_flops", "hbm_bytes",
+                                 "collective_breakdown")},
+            "argument_size_bytes": m["argument_size_bytes"],
+            "temp_size_bytes": m["temp_size_bytes"]}
+
+
+def dryrun_phase(dev, counters) -> dict:
+    """The dry run (`repro_torch.launch.dryrun`: fake tensors, an abstract
+    mesh, the H100 roofline) held against the card, then run over the
+    production meshes (DRY_* above), with every launch count set to 0 just
+    before it: fake tensors launch nothing, and the card's steps here run
+    the plain layers, so every count must still be 0 after it."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import zoo
+    from repro_torch.models.module import init_from_specs
+    from repro_torch.sharding.rules import Mesh
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainStepConfig,
+                                              init_train_state,
+                                              make_train_step)
+    for fn in counters.values():
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    cfg = ARCHS[TRAIN_ARCH]
+    one = Mesh.abstract((1, 1), ("data", "model"), device_type="cuda")
+    train_shape = ShapeConfig(f"train_b{TRAIN_B}_s{TRAIN_S}", "train",
+                              TRAIN_S, TRAIN_B)
+    dec_shape = ShapeConfig(f"decode_b{SLOTS}_s{MAX_LEN}", "decode",
+                            MAX_LEN, SLOTS)
+    with registered(SHAPES, {s.name: s for s in (train_shape, dec_shape)}):
+        t0 = time.perf_counter()
+        _, dry = dryrun.lower_cell(TRAIN_ARCH, train_shape.name,
+                                   multi_pod=False, mesh=one, device="cuda")
+        dry_s = time.perf_counter() - t0
+        _, dry_dec = dryrun.lower_cell(TRAIN_ARCH, dec_shape.name,
+                                       multi_pod=False, mesh=one,
+                                       device="cuda")
+    roof, mem = dry["roofline"], dry["memory"]
+
+    # ---- the same step on the card ---------------------------------------
+    step_cfg = TrainStepConfig(remat=True, opt=AdamWConfig())
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = init_from_specs(zoo.build_param_specs(cfg), 0, device=dev)
+    state = init_train_state(cfg, params, step_cfg)
+    batch = token_batch(cfg, 0, TRAIN_B, TRAIN_S, dev)
+    torch.cuda.synchronize()
+    args_alloc = torch.cuda.memory_allocated() - base
+    fn = make_train_step(cfg, one, step_cfg)
+    counter = FlopCounterMode(display=False)
+    with counter:
+        params, state, m = fn(params, state, batch)
+    torch.cuda.synchronize()
+    card_flops = counter.get_total_flops()
+    assert np.isfinite(float(m["loss"]))
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    for _ in range(DRY_TIMED):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        params, state, m = fn(params, state, batch)
+        ev[1].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    med_s = float(np.median(step_ms)) / 1e3
+    del fn, state, batch, m
+    torch.cuda.empty_cache()
+
+    # ---- one decode step of 4 slots, the plain layers ---------------------
+    caches = init_from_specs(zoo.build_cache_specs(cfg, SLOTS, MAX_LEN), 0,
+                             device=dev)
+    tokens = torch.ones((SLOTS, 1), dtype=torch.int32, device=dev)
+
+    def decode():
+        return zoo.decode_step(cfg, params, tokens, caches, MAX_LEN - 1,
+                               mesh=one, kernels=False)
+
+    for _ in range(2):
+        decode()
+    dec_ms = cuda_ms(decode, iters=DRY_DECODE_STEPS, warmup=0)
+    del params, caches, tokens
+    torch.cuda.empty_cache()
+    predicted = {"flops": roof["flops"], "card_flops": card_flops,
+                 "flops_ratio": roof["flops"] / card_flops,
+                 "xla_flops": roof["xla_flops"],
+                 "argument_size_bytes": mem["argument_size_bytes"],
+                 "card_argument_bytes": args_alloc,
+                 "argument_ratio": mem["argument_size_bytes"] / args_alloc,
+                 "temp_size_bytes": mem["temp_size_bytes"],
+                 "card_peak_bytes": peak,
+                 "peak_ratio": (mem["argument_size_bytes"] +
+                                mem["temp_size_bytes"]) / peak,
+                 "step_time_s": max(roof["t_compute_s"], roof["t_memory_s"],
+                                    roof["t_collective_s"]),
+                 "card_step_ms": step_ms, "card_step_s_median": med_s,
+                 "mfu": roof["mfu"],
+                 "card_mfu": roof["model_flops"] / med_s / BF16_OPS_PER_S,
+                 "bottleneck": roof["bottleneck"],
+                 "t_compute_s": roof["t_compute_s"],
+                 "t_memory_s": roof["t_memory_s"],
+                 "useful_flops_ratio": roof["useful_flops_ratio"],
+                 "dry_run_s": dry_s}
+    predicted["step_ratio"] = med_s / predicted["step_time_s"]
+    for key in ("flops_ratio", "argument_ratio"):
+        assert abs(predicted[key] - 1) <= DRY_TOL, (key, predicted)
+    dr = dry_dec["roofline"]
+    decode_line = {
+        "slots": SLOTS, "cache": MAX_LEN, "cur_len": MAX_LEN - 1,
+        "t_memory_s": dr["t_memory_s"],
+        "t_memory_unfused_s": dr["t_memory_unfused_s"],
+        "t_compute_s": dr["t_compute_s"], "hbm_bytes": dr["hbm_bytes"],
+        "card_ms": dec_ms,
+        "weights_bound_ms": depth_line(cfg)["param_bytes"] /
+        HBM_BYTES_PER_S * 1e3,
+        "ratio_to_memory_term": dec_ms / 1e3 / dr["t_memory_s"]}
+
+    # ---- the production meshes ------------------------------------------
+    cells, failures = {}, []
+    grid = [(False, arch, shape) for arch in ARCHS for shape in DRY_SHAPES]
+    grid.append((True, TRAIN_ARCH, "train_4k"))
+    for multi_pod, arch, shape in grid:
+        tag = "2x16x16" if multi_pod else "16x16"
+        cell = f"{tag}/{arch}/{shape}"
+        t0 = time.perf_counter()
+        try:
+            with registered(ARCHS, {arch: dry_cut(ARCHS[arch])}):
+                _, rep = dryrun.lower_cell(arch, shape, multi_pod=multi_pod,
+                                           device="cuda")
+            cells[cell] = dry_cell_line(rep, time.perf_counter() - t0)
+        except Exception as e:
+            failures.append(cell)
+            cells[cell] = {"status": "FAIL", "error": repr(e)}
+    launches = {name: fn.launches for name, fn in counters.items()}
+    seconds = time.perf_counter() - t_phase
+    assert not failures, (failures, [cells[c] for c in failures])
+    assert launches == dict.fromkeys(counters, 0), launches
+    assert seconds <= DRY_BUDGET_S, seconds
+    return {"phase": "dryrun", "arch": TRAIN_ARCH, "launches": launches,
+            "seconds": seconds, "budget_s": DRY_BUDGET_S, "tol": DRY_TOL,
+            "train": predicted, "decode": decode_line,
+            "production": {"depth": {a: dry_cut(c).n_layers
+                                     for a, c in ARCHS.items()},
+                           "shapes": list(DRY_SHAPES), "cells": cells}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3018,6 +3240,10 @@ def main() -> int:
     emit(trained)
     emit(train_float32_gate(dev))
 
+    # ---- the dry run against the card, then the production meshes -------
+    dried = dryrun_phase(dev, counters)
+    emit(dried)
+
     # ---- the multi-device layer on the card ------------------------------
     from repro_torch.configs import ARCHS
     meshed = mesh_phase(dev, counters, serve_cfg=ARCHS[MESH_ARCH],
@@ -3073,6 +3299,7 @@ def main() -> int:
         by_path = {a: r["launches"][name] for a, r in served.items()}
         by_path[f"train {TRAIN_ARCH}"] = trained["launches"][name]
         by_path[f"mesh {MESH_ARCH}"] = meshed["serve"]["launches"][name]
+        by_path["dryrun"] = dried["launches"][name]
         if name == "moe_gemm":
             by_path[f"mesh moe_ffn {MESH_MOE}"] = meshed["moe"]["launches"]
         row = {

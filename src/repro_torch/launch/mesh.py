@@ -27,14 +27,21 @@ def world_size() -> int:
     return 1
 
 
+def production_layout(multi_pod: bool = False):
+    """(shape, axis names) of the production mesh: (16, 16) ("data",
+    "model"), or (2, 16, 16) ("pod", "data", "model") with `multi_pod`."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda") -> Mesh:
-    """The (16, 16) ("data", "model") mesh, or (2, 16, 16) ("pod", "data",
-    "model") with `multi_pod`.  Raises ValueError when the world is not
-    256 (512) ranks, as the reference's `jax.make_mesh` does with too few
-    devices."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    """The `production_layout` mesh over the world's ranks.  Raises
+    ValueError when the world is not 256 (512) ranks, as the reference's
+    `jax.make_mesh` does with too few devices; `Mesh.abstract` of the same
+    layout needs no ranks (the dry run's)."""
+    shape, axes = production_layout(multi_pod)
     n, world = 1, world_size()
     for s in shape:
         n *= s

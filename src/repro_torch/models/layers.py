@@ -378,7 +378,12 @@ def moe_local(params, x, *, top_k: int, mesh=None, dp=(),
     topv, topi = torch.topk(probs, top_k, dim=-1)              # (n, k)
     topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
     flat_e = topi.reshape(-1)                                  # (n*k,) token-major
-    group_sizes = torch.bincount(flat_e, minlength=E)
+    # per-expert slot counts by a static-shape scatter-add, as the
+    # reference's `zeros((E,)).at[flat_e].add(1)` (`bincount`'s output
+    # shape depends on the data, which a shape-only run cannot give)
+    group_sizes = torch.zeros(E, dtype=torch.int64,
+                              device=x.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
     w_slot = topv.reshape(-1).float()
     if tp is not None:          # into the work split over d_ff
         xf, w_slot = copy_to(xf, mesh, tp), copy_to(w_slot, mesh, tp)

@@ -89,6 +89,17 @@ def init_from_specs(specs, generator_or_seed, device=None,
     return tree_map(make, specs)
 
 
+def abstract_from_specs(specs, device=None):
+    """A tree of empty tensors of the specs' shapes and dtypes on
+    `device` (no initialisation): under `torch._subclasses.
+    FakeTensorMode` fake tensors, which allocate nothing (the dry run's
+    arguments, the reference's `ShapeDtypeStruct`s).  `device=None` means
+    CUDA and raises without it."""
+    dev = resolve_device(device)
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device=dev), specs)
+
+
 def count_params(specs) -> int:
     return int(sum(math.prod(s.shape) for s in tree_leaves(specs)))
 

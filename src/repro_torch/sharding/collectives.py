@@ -37,6 +37,9 @@ from repro_torch.sharding.rules import Mesh, NamedSharding, all_gather
 
 def all_reduce(x: torch.Tensor, mesh: Mesh, axes, op=dist.ReduceOp.SUM):
     """A reduced copy of `x` over `axes` (no gradient)."""
+    n = mesh.size(axes)
+    if n > 1 and mesh.recorder is not None:
+        return mesh.recorder.collective("all-reduce", x, x.shape, n)
     group = mesh.group(axes)
     if group is None:
         return x

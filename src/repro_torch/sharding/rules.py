@@ -89,7 +89,10 @@ class Mesh:
     creates a process group for each set of two or more axes (a
     collective call over the world), besides the device mesh's one group
     per axis.  `Mesh.abstract` lays a mesh out without ranks behind it,
-    for layout arithmetic alone (`spec_for`, block shapes).
+    for layout arithmetic alone (`spec_for`, block shapes); its collectives
+    raise, except while a dry-run recorder is attached as its `recorder`
+    (`repro_torch.analysis.hlo.Recorder`), which logs each one
+    and returns an empty tensor of the output's shape.
 
         >>> m = Mesh((1, 1), ("data", "model"), device_type="cpu")
         >>> m.shape, m.size(("data", "model")), m.index("data")
@@ -108,6 +111,7 @@ class Mesh:
             raise ValueError(
                 f"a {shape} mesh needs {n} ranks; the world has {world}")
         self.device_type = device_type
+        self.recorder = None
         self.devices = np.arange(n).reshape(shape)
         self.shape = dict(zip(self.axis_names, shape))
         self.rank = dist.get_rank() if on else 0
@@ -138,6 +142,7 @@ class Mesh:
         self = cls.__new__(cls)
         self.axis_names = tuple(axis_names)
         self.device_type = device_type
+        self.recorder = None
         self.devices = np.arange(math.prod(shape)).reshape(tuple(shape))
         self.shape = dict(zip(self.axis_names, self.devices.shape))
         self.rank = 0
@@ -281,6 +286,11 @@ class NamedSharding:
 def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0):
     """`x`'s blocks from every rank along `axes`, concatenated on `dim` in
     the axes' row-major order (no gradient; `x` itself along one rank)."""
+    n = mesh.size(axes)
+    if n > 1 and mesh.recorder is not None:
+        shape = list(x.shape)
+        shape[dim] *= n
+        return mesh.recorder.collective("all-gather", x, shape, n)
     group = mesh.group(axes)
     if group is None:
         return x

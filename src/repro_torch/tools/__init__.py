@@ -6,4 +6,7 @@ manifest; exit 0, or 3 when points were quarantined), `merge_stores`
 (the fleet dashboard over shard heartbeats) and `trace_export` (the
 schedule and serving traces and the bottleneck report, byte-identical
 across runs).  They keep the flags, outputs and exit codes of the JAX
-package's `tools/*.py`."""
+package's `tools/*.py`.  The port's own gates run the same way:
+`check_static` (the determinism linter over `src/repro_torch`; exit 5
+under `--strict` with unallowed findings) and `check_docs` (the port's
+docstring examples; exit 1 on a failure)."""

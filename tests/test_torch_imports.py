@@ -11,8 +11,11 @@ simulator`) runs a small traced serial sweep, and the training entry point
 fault-tolerance modules imported, the sweep CLIs (`repro_torch.tools`)
 run, and the multi-device layer (`repro_torch.sharding`,
 `repro_torch.launch.mesh`, `repro_torch.train.pipeline`) serves and takes
-a pipeline step on a one-rank mesh.  Each new module of the CLIs and the
-multi-device layer, imported alone, loads neither.  `import repro_torch.
+a pipeline step on a one-rank mesh, the dry run counts an MoE train step
+on an abstract (2, 2) mesh and the port's linter passes it.  Each new
+module of the CLIs, the multi-device layer, the dry run and the gates,
+imported alone, loads neither, and an abstract mesh's collectives raise
+without a dry-run recorder.  `import repro_torch.
 api.session` and the sweep CLIs load no torch, so a spawned sweep worker
 does not pay for it."""
 import ast
@@ -129,6 +132,25 @@ toks = torch.ones(2, 8, dtype=torch.long)
 loss = make_pipeline_loss(cfg, pipe, n_stages=1, n_microbatches=2)(
     p1, {"tokens": toks, "labels": toks})
 assert bool(torch.isfinite(loss))
+for mod in ("analysis.hlo", "analysis.roofline", "analysis.probe",
+            "launch.dryrun", "analysis.staticcheck.linter",
+            "analysis.staticcheck.tiers", "tools.check_static",
+            "tools.check_docs"):
+    assert f"repro_torch.{mod}" in names
+from repro_torch.launch import dryrun
+small = reduce_config(ARCHS["deepseek-moe-16b"], n_layers=2, d_model=64,
+                      d_ff=128, vocab=128)
+ARCHS["moe-small"] = small
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs import SHAPES
+SHAPES["train-small"] = ShapeConfig("train-small", "train", 32, 4)
+_, rep = dryrun.lower_cell("moe-small", "train-small", multi_pod=False,
+                           mesh=Mesh.abstract((2, 2), ("data", "model"),
+                                              device_type="cpu"),
+                           device="cpu")
+assert rep["roofline"]["flops"] > 0 and rep["roofline"]["collective_bytes"]
+from repro_torch.tools import check_static
+assert check_static.main(["--strict"]) == 0
 assert sys.modules["jax"] is None and sys.modules["repro"] is None
 print(len(names), "modules")
 """
@@ -172,6 +194,24 @@ def test_port_runs_with_jax_and_repro_blocked():
     assert "modules" in out.stdout
 
 
+def test_abstract_mesh_collectives_raise_without_a_recorder():
+    """An abstract mesh has no process group: with no dry-run recorder
+    attached its collectives raise, so no real run can skip one."""
+    import torch
+
+    from repro_torch.sharding.collectives import all_reduce
+    from repro_torch.sharding.rules import Mesh, all_gather
+    mesh = Mesh.abstract((2, 4), ("data", "model"), device_type="cpu")
+    x = torch.ones(4)
+    for call in (lambda: all_gather(x, mesh, "data"),
+                 lambda: all_reduce(x, mesh, "model")):
+        with pytest.raises(RuntimeError, match="no process group"):
+            call()
+    # along an axis of one rank there is nothing to do, recorder or not
+    one = Mesh.abstract((1, 4), ("data", "model"), device_type="cpu")
+    assert all_gather(x, one, "data") is x and all_reduce(x, one, "data") is x
+
+
 def test_sweep_runtime_imports_no_torch():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import sys; import repro_torch.api.session, repro_torch.api, "
@@ -191,10 +231,17 @@ def test_sweep_runtime_imports_no_torch():
      "tools.trace_export"),
     ("sharding.rules", "sharding.collectives"),
     ("launch.mesh",),
-    ("train.pipeline",)], ids=["tools", "sharding", "mesh", "pipeline"])
+    ("train.pipeline",),
+    ("analysis.hlo", "analysis.roofline", "analysis.probe"),
+    ("launch.dryrun",),
+    ("analysis.staticcheck.linter", "analysis.staticcheck.tiers"),
+    ("tools.check_static", "tools.check_docs")],
+    ids=["tools", "sharding", "mesh", "pipeline", "analysis", "dryrun",
+         "staticcheck", "gates"])
 def test_new_modules_alone_load_neither_jax_nor_repro(mods):
-    """Each module of the CLIs and the multi-device layer, imported by
-    itself into a fresh interpreter, leaves `jax` and `repro` unloaded."""
+    """Each module of the CLIs, the multi-device layer, the dry run and
+    the port's gates, imported by itself into a fresh interpreter, leaves
+    `jax` and `repro` unloaded."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import importlib, sys\n"
             f"for m in {list(mods)!r}:\n"

@@ -120,3 +120,31 @@ def test_grouped_expert_gemm_matches_reference(E, C, K, N, bm, bn, bkk,
     assert got.dtype == td and got.shape == (E, C, N)
     tol = 5e-2 if dtype == "bfloat16" else 1e-4
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("impl", ["capacity", "ragged"])
+def test_moe_slot_counts_equal_bincount(monkeypatch, impl):
+    """The per-expert slot counts come from a static-shape scatter-add of
+    ones (the reference's `zeros((E,)).at[flat_e].add(1)`), in place of
+    `torch.bincount`, whose output shape depends on the data (a
+    fake-tensor dry run cannot give it).  The integers are bincount's, so
+    the aux loss and the ragged path's groups are bit for bit the values
+    before."""
+    _, params = _carried("float32")
+    x = torch.as_tensor(normal((2, 8, 32), 7))
+    groups = []
+    ragged_dot = layers._ragged_dot
+
+    def recording(xs, w, group_sizes):
+        groups.append(group_sizes)
+        return ragged_dot(xs, w, group_sizes)
+
+    monkeypatch.setattr(layers, "_ragged_dot", recording)
+    _, aux = layers.moe_ffn(params, x, top_k=2, impl=impl)
+    probs = torch.softmax(x.reshape(-1, 32).float() @ params["router"], -1)
+    flat_e = torch.topk(probs, 2, dim=-1).indices.reshape(-1)
+    counts = torch.bincount(flat_e, minlength=8)
+    frac = counts.float() / flat_e.numel()
+    assert torch.equal(aux, 8 * torch.sum(frac * probs.mean(dim=0)))
+    assert len(groups) == (3 if impl == "ragged" else 0)
+    assert all(torch.equal(g, counts) for g in groups)
