@@ -135,8 +135,18 @@ non-zero and prints no `ok` line:
              layers against this rank's results and timed in bf16 at full
              width and depth, and the MoE layer on a (1, 2) mesh, each
              rank's half of d_ff (704) through `moe_gemm`'s `_mma`
-             kernel, held against this rank's output in bf16.  The line
-             names each part's backend and world size.
+             kernel, held against this rank's output in bf16; then the
+             tensor-parallel dense layers on the (1, 2) mesh: llama3.2-3b
+             served at full width and depth through `ServeEngine(mesh=)`
+             with the kernels on each rank's 12 of 24 heads (launches
+             equal to `zoo.kernel_launches`' counts, flash attention
+             `_mma`, decode attention `_split` on the cache's KV-head
+             view; both ranks' tokens equal), its float32 gate at 2
+             layers against this rank's logits (F32_LOGITS_TOL), float32
+             gradients at 2 layers against the mesh-free step on the same
+             rank (loss 1e-5, gradients 1e-4), and a bf16 train step at
+             full width and depth, timed.  The line names each part's
+             backend and world size.
 
 Then a line `{"kernels": [...]}`, the `nvidia-smi` name and power limit, and
 last `{"ok": true, "device": {...}}`.  Exits non-zero without CUDA.
@@ -265,6 +275,18 @@ TRAIN_F32 = {"depth": 2, "batch": 1, "seq": 128, "cpu_tol": 1e-4,
 # ranks sharing the card where gloo lets them.
 MESH_ARCH, MESH_MOE = "llama3.2-3b", "deepseek-moe-16b"
 PIPE = {"batch": 8, "seq": 1024, "microbatches": 4}
+# Tensor-parallel dense layers on two "model" ranks sharing the card, a
+# (1, 2) (data, model) mesh: MESH_ARCH served at full width and depth
+# through `ServeEngine(mesh=)` with the kernels on each rank's heads (12 of
+# 24, 4 of 8 KV heads), d_ff and vocabulary; its float32 gate at
+# `gate_layers` against the one-rank logits (F32_LOGITS_TOL); a float32
+# train step's loss (TP_TRAIN_TOL relative) and gradients (TP_GRAD_TOL of
+# each leaf's largest magnitude) at `gate_layers` against the mesh-free
+# step on the same rank, at PIPE's batch and seq; and a bf16 train step at
+# full width and depth, timed (TP_TIMED steps after a warm-up).
+TP_MESH = (1, 2)
+TP_TRAIN_TOL, TP_GRAD_TOL = 1e-5, 1e-4
+TP_TIMED = 2
 # The dryrun phase. (a) The dry run held against the card at the train
 # phase's shape (TRAIN_ARCH, B 8 x S 1024, full remat, on a (1, 1) mesh) and
 # at a serving decode step (4 slots over a cache of MAX_LEN, cur_len
@@ -2167,6 +2189,7 @@ def mesh_serve(dev, counters, mesh, cfg) -> dict:
     del params
     return {"arch": cfg.name, "n_layers": cfg.n_layers, "requests": N_REQ,
             "new_tokens": new, "tokens_equal": True,
+            "tokens": out["mesh"]["tokens"],
             "launches": out["mesh"]["launches"],
             "wall_s": {k: v["wall_s"] for k, v in out.items()}}
 
@@ -2358,6 +2381,146 @@ def mesh_pipeline(dev, cfg, gate_cfg) -> dict:
                                                  "microbatches")}, **out}
 
 
+def tp_serve_child(dev, full, tp) -> dict:
+    """`full` through `ServeEngine(mesh=tp)` with the kernels on this
+    rank's heads, d_ff and vocabulary: each kernel's launches in `serve`
+    (counts at 0 just before) equal to `zoo.kernel_launches`' count, the
+    flash and decode attention variants `_mma` and `_split` on the local
+    heads and the KV-head range of the cache, a timed wave, the tokens."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.models import zoo
+    from repro_torch.serve.engine import Request, ServeEngine
+    counters = {"rmsnorm": rmsnorm_fwd, "flash_attention": flash_attention_fwd,
+                "decode_attention": decode_attention_fwd}
+    new = SERVED[full.name][0]
+    eng = ServeEngine(full, seeded_params(full, dev), mesh=tp,
+                      batch_slots=SLOTS, prompt_len=PROMPT, max_len=MAX_LEN,
+                      device=dev)
+    torch.cuda.empty_cache()
+    assert eng.kernels
+    prompts = np.random.default_rng(5).integers(1, full.vocab,
+                                                size=(N_REQ, PROMPT))
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=new) for p in prompts]
+
+    eng.run(requests()[:SLOTS])                # warm-up
+    for fn in counters.values():
+        fn.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    reqs = eng.serve(requests())
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    per_prefill, per_step = zoo.kernel_launches(full)
+    expected = {k: WAVES * per_prefill.get(k, 0)
+                + WAVES * (new - 1) * per_step.get(k, 0) for k in counters}
+    assert launches == expected, (launches, expected)
+    assert all(r.done and len(r.out_tokens) == new and
+               all(0 <= t < full.vocab for t in r.out_tokens) for r in reqs)
+    sync(dev)
+    t0 = time.perf_counter()
+    tok = eng.prefill_step(requests()[:SLOTS])
+    tok.tolist()
+    t1 = time.perf_counter()
+    for _ in range(4):
+        tok = eng.decode_once(tok)
+        tok.tolist()
+    t2 = time.perf_counter()
+    pre, pre_k = step_profile(
+        lambda: eng.prefill_step(requests()[:SLOTS]).tolist())
+    assert_variant(pre_k, "flash_attention_kernel", "_mma")
+    tok = eng.decode_once(eng.prefill_step(requests()[:SLOTS]))
+    step, step_k = step_profile(lambda: eng.decode_once(tok).tolist())
+    assert_variant(step_k, "decode_attention_kernel", "_split")
+    out = {"arch": full.name, "n_layers": full.n_layers, "mesh": list(TP_MESH),
+           "requests": N_REQ, "new_tokens": new, "wall_s": wall,
+           "tokens_per_s": N_REQ * new / wall, "launches": launches,
+           "expected_launches": expected,
+           "variants": {"flash_attention": "_mma",
+                        "decode_attention": "_split"},
+           "prefill_ms": (t1 - t0) * 1e3, "decode_ms_per_step":
+           (t2 - t1) * 1e3 / 4, "prefill_profile": pre,
+           "decode_step_profile": step,
+           "tokens": [r.out_tokens for r in reqs]}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_child(dev, full, gate, tp) -> dict:
+    """A float32 train loss and its gradients of `gate` on `tp` (this
+    rank's blocks) against the mesh-free step on the same rank, the
+    loss within TP_TRAIN_TOL and every gradient block within TP_GRAD_TOL
+    of its leaf's largest magnitude; then `make_train_step(full, tp)` in
+    bf16 at full width and depth at PIPE's batch and seq, timed."""
+    import torch
+    from repro_torch.models import zoo
+    from repro_torch.models.module import tree_leaves, tree_unflatten
+    from repro_torch.models.transformer import param_shardings
+    from repro_torch.sharding.rules import shard_tree
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainStepConfig,
+                                              init_train_state,
+                                              make_train_step)
+    params = seeded_params(gate, dev, 4)
+    data = token_batch(gate, 0, PIPE["batch"], PIPE["seq"], dev)
+    sh = param_shardings(gate, tp)
+
+    def loss_grads(p, mesh):
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(p)]
+        loss = zoo.train_loss(gate, tree_unflatten(p, leaves), data,
+                              mesh=mesh)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    want_loss, want = loss_grads(params, None)
+    loss, grads = loss_grads(shard_tree(params, sh), tp)
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    worst = 0.0
+    for g, w, s in zip(grads, want, tree_leaves(sh)):
+        worst = max(worst, float((g - s.shard(w)).abs().max()) /
+                    max(float(w.abs().max()), 1e-30))
+    assert loss_rel <= TP_TRAIN_TOL, (loss, want_loss)
+    assert worst <= TP_GRAD_TOL, worst
+    del params, grads, want
+    torch.cuda.empty_cache()
+    p = shard_tree(seeded_params(full, dev, 4), param_shardings(full, tp))
+    torch.cuda.empty_cache()
+    scfg = TrainStepConfig(remat=True, opt=AdamWConfig())
+    state = init_train_state(full, p, scfg)
+    step = make_train_step(full, tp, scfg)
+    batch = token_batch(full, 0, PIPE["batch"], PIPE["seq"], dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    p, state, m = step(p, state, batch)             # warm-up
+    ms = []
+    for _ in range(TP_TIMED):
+        sync(dev)
+        t0 = time.perf_counter()
+        p, state, m = step(p, state, batch)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    assert np.isfinite(float(m["loss"])), m
+    out = {"float32": {"n_layers": gate.n_layers, "batch": PIPE["batch"],
+                       "seq": PIPE["seq"], "loss": loss,
+                       "loss_rel_diff": loss_rel, "grad_rel_diff": worst,
+                       "tol": [TP_TRAIN_TOL, TP_GRAD_TOL]},
+           "bf16": {"n_layers": full.n_layers, "batch": PIPE["batch"],
+                    "seq": PIPE["seq"], "step_ms": ms,
+                    "loss": float(m["loss"]),
+                    "local_params": sum(x.numel() for x in tree_leaves(p)),
+                    "max_memory_allocated":
+                    torch.cuda.max_memory_allocated()
+                    if dev.type == "cuda" else None}}
+    del p, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def two_rank_child(rank: int, world: int, d: str, device_type: str,
                    full, moe_cfg, gate_layers: int, shapes: dict) -> None:
     """One of two ranks sharing one device through gloo: a probe of the
@@ -2425,6 +2588,15 @@ def two_rank_child(rank: int, world: int, d: str, device_type: str,
             lambda: moe_ffn(params, x, mesh=tp, kernels=True, **kw))
         assert_variant(kernels, "moe_gemm_kernel", "_mma")
         res["moe"]["variant"] = "_mma"
+    del params, x
+    # tensor-parallel dense layers: heads, d_ff and vocabulary over "model"
+    if use:
+        torch.cuda.empty_cache()
+        res["tp_serve"] = tp_serve_child(dev, full, tp)
+    logits, _ = kv_decode(gate, seeded_params(gate, dev, 1), tp, dev,
+                          False, kernels=None)
+    res["tp_gate"] = [x.cpu().numpy() for x in logits]
+    res["tp_train"] = tp_train_child(dev, full, gate, tp)
     if device_type == "cuda":
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     dist.destroy_process_group()
@@ -2485,7 +2657,23 @@ def two_ranks(dev, full, moe_cfg, gate_layers: int, one: dict) -> dict:
     assert moe_err <= limit, (moe_err, limit)
     assert all(r["moe"]["launches"] == (3 if dev.type == "cuda" else 0)
                for r in ranks)
-    out.update({
+    tp_gate = [max(float(np.abs(a - b.cpu().numpy()).max())
+                   for a, b in zip(r["tp_gate"], one["tp_gate"]))
+               for r in ranks]
+    assert max(tp_gate) <= F32_LOGITS_TOL, tp_gate
+    tp = {"mesh": list(TP_MESH), "gate_max_abs_diff": max(tp_gate),
+          "gate_tol": F32_LOGITS_TOL,
+          "train": [r["tp_train"] for r in ranks]}
+    if dev.type == "cuda":
+        serve = [r["tp_serve"] for r in ranks]
+        # both ranks sample from the same whole logits
+        assert serve[0]["tokens"] == serve[1]["tokens"]
+        same = [a == b for x, y in zip(serve[0]["tokens"], one["tokens"])
+                for a, b in zip(x, y)]
+        tp["serve"] = [{k: v for k, v in r.items() if k != "tokens"}
+                       for r in serve]
+        tp["serve_token_agreement_with_one_rank"] = sum(same) / len(same)
+    out.update({"tensor_parallel": tp,
         "kv_gate_max_abs_diff": max(kv), "kv_decode_ms_per_step":
         [r["kv_ms"] for r in ranks], "pipe_gate_grad_rel_diff": worst,
         "pipe_full_loss": ranks[0]["pipe_full"]["loss"],
@@ -2542,13 +2730,16 @@ def mesh_phase(dev, counters, *, serve_cfg, moe_cfg,
                                        dtype=torch.float32)
             kv, _ = kv_decode(gate, seeded_params(gate, dev, 1), mesh, dev,
                               True, kernels=False)
+            tp_gate, _ = kv_decode(gate, seeded_params(gate, dev, 1), mesh,
+                                   dev, False, kernels=None)
             pipe1 = Mesh((1, 1), ("pipe", "data"), device_type=dev.type)
             params = seeded_params(gate, dev, 4)
             loss, grads, _ = pipeline_run(
                 gate, params, pipe1, dev, batch=PIPE["batch"],
                 seq=PIPE["seq"], microbatches=PIPE["microbatches"])
             assert len(grads) == len(tree_leaves(params))
-            one = {"kv": kv, "pipe": (loss, grads), "moe": moe_out}
+            one = {"kv": kv, "pipe": (loss, grads), "moe": moe_out,
+                   "tp_gate": tp_gate, "tokens": out["serve"].pop("tokens")}
         finally:
             dist.destroy_process_group()
     out["one_rank_wall_s"] = time.perf_counter() - t0
@@ -3302,6 +3493,9 @@ def main() -> int:
         by_path["dryrun"] = dried["launches"][name]
         if name == "moe_gemm":
             by_path[f"mesh moe_ffn {MESH_MOE}"] = meshed["moe"]["launches"]
+        tp_serve = meshed["two_ranks"]["tensor_parallel"]["serve"]
+        by_path[f"mesh tensor-parallel {MESH_ARCH} (rank 0 of 2)"] = \
+            tp_serve[0]["launches"].get(name, 0)
         row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",

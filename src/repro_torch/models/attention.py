@@ -16,6 +16,14 @@ the new position on the rank that holds it, runs
 `layers.decode_attention_kv_sharded`, and keeps this rank's rows of the
 output; prefill writes the prompt's positions into each rank's block.
 
+`tp` (a mesh) runs GQA tensor-parallel over its "model" ranks, on whole
+heads (`heads_split`): `wq`'s columns and `wo`'s rows are this rank's
+heads, `wk` and `wv` are whole and the rank takes the columns of its
+contiguous range of KV heads (`kv_range`), x enters through `copy_to` and
+the output sums over "model" (`reduce_from`).  The caches keep every KV
+head (`zoo.cache_shardings`); a rank fills and reads only its range, a
+view, so the attention kernels take it as they take the whole cache.
+
 `kernels=True` runs GQA's attention through the flash and decode attention
 kernels and MLA's `kv_norm` through the rmsnorm kernel.  MLA's prefill
 attention (q and k of D = qk_nope + qk_rope, v of D = v_dim) and its
@@ -33,7 +41,7 @@ from repro_torch.models.layers import (NEG_INF, apply_mrope, apply_rope,
                                        blocked_attention, decode_attention,
                                        decode_attention_kv_sharded, rmsnorm)
 from repro_torch.models.module import ParamSpec
-from repro_torch.sharding.collectives import rows
+from repro_torch.sharding.collectives import copy_to, reduce_from, rows
 from repro_torch.sharding.rules import all_gather, batch_axes
 
 KV_AXIS = ("data",)     # the split-KV axis (`decode_attention_kv_sharded`)
@@ -53,30 +61,81 @@ def gqa_specs(d_model: int, n_heads: int, n_kv: int, head_dim: int,
     }
 
 
+def heads_split(n_heads: int, n_kv: int, mesh) -> bool:
+    """Whether GQA's heads split over `mesh`'s "model" ranks on whole
+    heads: the local count L = n_heads / model is whole, and L % G == 0 or
+    G % L == 0 (G = n_heads / n_kv), so that each rank's query heads use a
+    contiguous range of whole KV heads.
+
+        >>> from repro_torch.sharding.rules import Mesh
+        >>> [heads_split(h, kv, Mesh.abstract((1, 16), ("data", "model")))
+        ...  for h, kv in ((64, 8), (48, 1), (24, 8), (20, 20))]
+        [True, True, False, False]
+    """
+    m = mesh.size("model")
+    if m == 1 or n_heads % m:
+        return False
+    L, G = n_heads // m, n_heads // n_kv
+    return L % G == 0 or G % L == 0
+
+
+def kv_range(n_heads: int, n_kv: int, tp) -> tuple[int, int]:
+    """(first KV head, KV head count) of this rank's query heads under
+    `heads_split` ((0, n_kv) without `tp`).
+
+        >>> from repro_torch.sharding.rules import Mesh
+        >>> kv_range(48, 1, Mesh.abstract((1, 16), ("data", "model")))
+        (0, 1)
+    """
+    if tp is None:
+        return 0, n_kv
+    L, G = n_heads // tp.size("model"), n_heads // n_kv
+    return tp.index("model") * L // G, max(L // G, 1)
+
+
+def kv_cols(w, lo: int, n: int, head_dim: int):
+    """The columns of KV heads [lo, lo + n) of a (D, n_kv * head_dim)
+    projection, a view."""
+    return w[:, lo * head_dim:(lo + n) * head_dim]
+
+
 def gqa_attention(params, x, positions, *, n_heads, n_kv, head_dim,
                   rope="rope", rope_theta=1e4, mrope_sections=None,
                   mrope_positions=None, causal=True, cache=None,
                   cur_len=None, mesh=None, kv_seq_shard=False, block_q=512,
-                  block_kv=1024, cross_kv=None, kernels: bool = False):
+                  block_kv=1024, cross_kv=None, tp=None,
+                  kernels: bool = False):
     """x: (B,S,D). cache: dict(k,v: (B,T,Hkv,Dh)) for decode and prefill,
     written in place; cur_len: Python int (decode).  `kv_seq_shard` with a
     `mesh`: the cache is in the split-KV layout (module docstring) and x
-    holds this rank's rows.
+    holds this rank's rows.  `tp`: the heads split over its "model" ranks
+    (module docstring).
 
     Returns (out, cache). cross_kv: (k, v) for encoder-decoder cross-attn
-    (no rope, no cache update, non-causal over encoder length); it returns
-    None for the cache."""
+    (no rope, no cache update, non-causal over encoder length), with `tp`
+    this rank's KV heads (`kv_range`); it returns None for the cache."""
     B, S, D = x.shape
-    q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
+    Hq = n_heads
+    lo, Hkv = kv_range(n_heads, n_kv, tp)
+    wk, wv = params["wk"], params["wv"]
+    if tp is not None:
+        x = copy_to(x, tp, "model")
+        Hq = n_heads // tp.size("model")
+        wk, wv = (kv_cols(w, lo, Hkv, head_dim) for w in (wk, wv))
+    q = (x @ params["wq"]).reshape(B, S, Hq, head_dim)
+
+    def out_proj(out):
+        y = out.reshape(B, S, -1) @ params["wo"]
+        return y if tp is None else reduce_from(y, tp, "model")
 
     if cross_kv is not None:
         k, v = cross_kv
         out = blocked_attention(q, k, v, causal=False, block_q=block_q,
                                 block_kv=block_kv, kernels=kernels)
-        return out.reshape(B, S, -1) @ params["wo"], None
+        return out_proj(out), None
 
-    k = (x @ params["wk"]).reshape(B, S, n_kv, head_dim)
-    v = (x @ params["wv"]).reshape(B, S, n_kv, head_dim)
+    k = (x @ wk).reshape(B, S, Hkv, head_dim)
+    v = (x @ wv).reshape(B, S, Hkv, head_dim)
     if rope == "rope":
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
@@ -84,25 +143,29 @@ def gqa_attention(params, x, positions, *, n_heads, n_kv, head_dim,
         q = apply_mrope(q, mrope_positions, mrope_sections, rope_theta)
         k = apply_mrope(k, mrope_positions, mrope_sections, rope_theta)
 
+    # this rank's KV heads of the cache (all of them without `tp`): views
+    kv = None if cache is None else {
+        n: cache[n] if tp is None else cache[n][:, :, lo:lo + Hkv]
+        for n in ("k", "v")}
     if cache is not None and kv_seq_shard and mesh is not None:
-        out = _kv_sharded(q, k, v, cache, cur_len, mesh, causal=causal,
+        out = _kv_sharded(q, k, v, kv, cur_len, mesh, causal=causal,
                           block_q=block_q, block_kv=block_kv,
                           kernels=kernels)
     elif cache is None:
         out = blocked_attention(q, k, v, causal=causal, block_q=block_q,
                                 block_kv=block_kv, kernels=kernels)
     elif S == 1:  # decode step
-        cache["k"][:, cur_len:cur_len + 1] = k
-        cache["v"][:, cur_len:cur_len + 1] = v
-        out = decode_attention(q, cache["k"], cache["v"], cur_len + 1,
+        kv["k"][:, cur_len:cur_len + 1] = k
+        kv["v"][:, cur_len:cur_len + 1] = v
+        out = decode_attention(q, kv["k"], kv["v"], cur_len + 1,
                                kernels=kernels)
     else:  # prefill: compute attention and fill the cache
         out = blocked_attention(q, k, v, causal=causal, block_q=block_q,
                                 block_kv=block_kv, kernels=kernels)
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
+        kv["k"][:, :S] = k
+        kv["v"][:, :S] = v
 
-    return out.reshape(B, S, -1) @ params["wo"], cache
+    return out_proj(out), cache
 
 
 def _kv_sharded(q, k, v, cache, cur_len, mesh, *, causal, block_q,

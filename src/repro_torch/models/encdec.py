@@ -23,8 +23,14 @@ projects the encoder output into cross K/V.
 With a `mesh`, both stacks take the batch whole on every rank and run this
 rank's rows (split as `transformer.decoder_forward` splits them), on
 parameter blocks laid out by `transformer.param_shardings`, each layer
-gathered before use; `encode` returns this rank's rows of the encoder
-output, which `decode_stack` takes.
+gathered over the batch axes before use; `encode` returns this rank's rows
+of the encoder output, which `decode_stack` takes.  As in the decoders,
+the attention blocks (encoder, self and cross) and the GELU FFNs that the
+layout splits over "model" (`transformer.split_blocks`) run
+tensor-parallel, the cross attention's K/V from this rank's KV heads of
+`wk`/`wv` (or of the cache), and a vocabulary split over "model"
+(`transformer.vocab_tp`) gives a masked embedding lookup summed over
+"model".
 """
 from __future__ import annotations
 
@@ -37,9 +43,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import gelu_mlp, gelu_mlp_specs, layernorm
 from repro_torch.models.module import ParamSpec, stack_specs
 from repro_torch.models.transformer import (_index, _layer_gather, _unstack,
-                                            param_shardings, remat_layer,
-                                            resolve_kernels, split_batch)
-from repro_torch.sharding.collectives import gather_params
+                                            embed_lookup, param_shardings,
+                                            remat_layer, resolve_kernels,
+                                            split_batch, vocab_table,
+                                            vocab_tp)
+from repro_torch.sharding.collectives import copy_to, gather_params
 
 F32 = torch.float32
 
@@ -99,11 +107,12 @@ def _ln(p, x):
 
 def _placement(cfg, mesh, batch):
     """(dp, a function gathering a whole top-level leaf group, a function
-    making a stacked group's layer gather) for `mesh` (identities without
-    one)."""
+    giving a stacked group's `_layer_gather`) for `mesh` (identities
+    without one)."""
     dp, *_ = split_batch(mesh, batch)
     if mesh is None:
-        return dp, (lambda params, name: params[name]), (lambda name: None)
+        return dp, (lambda params, name: params[name]), \
+            (lambda name: (None, frozenset()))
     sh = param_shardings(cfg, mesh)
     return (dp, lambda params, name: gather_params(params[name], sh[name], dp),
             lambda name: _layer_gather(cfg, sh[name], dp, False))
@@ -116,10 +125,13 @@ def encode(cfg: ArchConfig, params, enc_embeds, *, mesh=None, kernels=None,
     dp, whole, layer_gather = _placement(cfg, mesh, enc_embeds)
     if mesh is not None:
         enc_embeds = split_batch(mesh, enc_embeds)[1]
-    gather = layer_gather("enc_layers")
+    gather, split = layer_gather("enc_layers")
     B, T, D = enc_embeds.shape
     pos = torch.arange(T, device=enc_embeds.device)[None].expand(B, T)
     x = enc_embeds + sinusoidal(pos, D).to(enc_embeds.dtype)
+
+    def tp(name):
+        return mesh if name in split else None
 
     def layer(x, lp):
         if gather is not None:
@@ -127,9 +139,10 @@ def encode(cfg: ArchConfig, params, enc_embeds, *, mesh=None, kernels=None,
         h = _ln(lp["ln1"], x)
         y, _ = attn.gqa_attention(lp["attn"], h, pos, n_heads=cfg.n_heads,
                                   n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                                  rope="none", causal=False, kernels=kernels)
+                                  rope="none", causal=False, tp=tp("attn"),
+                                  kernels=kernels)
         x = x + y
-        return x + gelu_mlp(lp["ffn"], _ln(lp["ln2"], x))
+        return x + gelu_mlp(lp["ffn"], _ln(lp["ln2"], x), tp=tp("ffn"))
 
     layer = remat_layer(layer, bool(remat))
     for lp in _unstack(params["enc_layers"]):
@@ -149,18 +162,21 @@ def decode_stack(cfg: ArchConfig, params, tokens, enc_out, *, mesh=None,
     dp, whole, layer_gather = _placement(cfg, mesh, tokens)
     if mesh is not None:
         tokens = split_batch(mesh, tokens)[1]
-    gather = layer_gather("dec_layers")
-    embed = whole(params, "embed")
+    gather, split = layer_gather("dec_layers")
+    embed = vocab_table(cfg, params, "embed", mesh, dp)
     kernels = resolve_kernels(kernels, embed.device)
     B, S = tokens.shape
     base = 0 if cur_len is None else cur_len
     pos = base + torch.arange(S, device=embed.device)[None].expand(B, S)
-    x = embed[tokens]
+    x = embed_lookup(embed, tokens, vocab_tp(cfg, mesh))
     x = x + sinusoidal(pos, cfg.d_model).to(x.dtype)
 
-    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
-    heads = dict(n_heads=cfg.n_heads, n_kv=Hkv, head_dim=Dh, rope="none",
-                 kernels=kernels)
+    Dh = cfg.head_dim
+    heads = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=Dh,
+                 rope="none", kernels=kernels)
+
+    def tp(name):
+        return mesh if name in split else None
 
     def layer(x, lp, cache_l):
         if gather is not None:
@@ -170,20 +186,25 @@ def decode_stack(cfg: ArchConfig, params, tokens, enc_out, *, mesh=None,
         if cache_l is not None:
             self_cache = {"k": cache_l["self_k"], "v": cache_l["self_v"]}
         y, _ = attn.gqa_attention(lp["self"], h, pos, causal=True,
-                                  cache=self_cache, cur_len=cur_len, **heads)
+                                  cache=self_cache, cur_len=cur_len,
+                                  tp=tp("self"), **heads)
         x = x + y
-        # cross attention to the encoder output
+        # cross attention to the encoder output, over this rank's KV heads
         h = _ln(lp["lnx"], x)
+        lo, Hkv = attn.kv_range(cfg.n_heads, cfg.n_kv_heads, tp("cross"))
         if cache_l is not None:
-            ck, cv = cache_l["cross_k"], cache_l["cross_v"]
+            ck, cv = (cache_l[n][:, :, lo:lo + Hkv]
+                      for n in ("cross_k", "cross_v"))
         else:
             Te = enc_out.shape[1]
-            ck = (enc_out @ lp["cross"]["wk"]).reshape(B, Te, Hkv, Dh)
-            cv = (enc_out @ lp["cross"]["wv"]).reshape(B, Te, Hkv, Dh)
+            e = enc_out if tp("cross") is None else \
+                copy_to(enc_out, mesh, "model")
+            ck, cv = ((e @ attn.kv_cols(lp["cross"][n], lo, Hkv, Dh))
+                      .reshape(B, Te, Hkv, Dh) for n in ("wk", "wv"))
         y, _ = attn.gqa_attention(lp["cross"], h, pos, cross_kv=(ck, cv),
-                                  **heads)
+                                  tp=tp("cross"), **heads)
         x = x + y
-        return x + gelu_mlp(lp["ffn"], _ln(lp["ln2"], x))
+        return x + gelu_mlp(lp["ffn"], _ln(lp["ln2"], x), tp=tp("ffn"))
 
     layer = remat_layer(layer, bool(remat) and caches is None)
     for i, lp in enumerate(_unstack(params["dec_layers"])):

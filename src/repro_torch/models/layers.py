@@ -21,7 +21,9 @@ with `torch.distributed` collectives: `decode_attention_kv_sharded`
 the reference's is plain `jnp`) and `moe_ffn(mesh=)` (tokens split over
 the data-parallel axes, each expert's d_ff over `model`, the output summed
 over `model` in bf16); `moe_local` is the region's body on one rank's
-block, which the decoder calls with its own layout.
+block, which the decoder calls with its own layout.  `glu_mlp` and
+`gelu_mlp` take `tp`, a mesh whose "model" ranks split d_ff (Megatron's
+column- then row-parallel pair, one reduction at the end).
 """
 from __future__ import annotations
 
@@ -244,9 +246,15 @@ def glu_mlp_specs(d_model: int, d_ff: int, dtype=torch.bfloat16):
     }
 
 
-def glu_mlp(params, x):
+def glu_mlp(params, x, tp=None):
+    """`tp`: a mesh whose "model" ranks split d_ff, `gate`/`up` this rank's
+    columns and `down` its rows (column- then row-parallel): x enters
+    through `copy_to` and the output sums over "model" (`reduce_from`)."""
+    if tp is not None:
+        x = copy_to(x, tp, "model")
     h = F.silu(x @ params["gate"]) * (x @ params["up"])
-    return h @ params["down"]
+    y = h @ params["down"]
+    return y if tp is None else reduce_from(y, tp, "model")
 
 
 def gelu_mlp_specs(d_model: int, d_ff: int, dtype=torch.bfloat16):
@@ -258,9 +266,19 @@ def gelu_mlp_specs(d_model: int, d_ff: int, dtype=torch.bfloat16):
     }
 
 
-def gelu_mlp(params, x):
-    h = F.gelu(x @ params["in"] + params["in_b"], approximate="tanh")
-    return h @ params["out"] + params["out_b"]
+def gelu_mlp(params, x, tp=None):
+    """`tp`: as `glu_mlp`'s, `in` this rank's columns and `out` its rows;
+    `in_b`, whole, is cut to this rank's d_ff slice, and `out_b` is added
+    once, after the sum over "model"."""
+    in_b = params["in_b"]
+    if tp is not None:
+        x = copy_to(x, tp, "model")
+        in_b = rows(in_b, tp, "model")
+    h = F.gelu(x @ params["in"] + in_b, approximate="tanh")
+    y = h @ params["out"]
+    if tp is not None:
+        y = reduce_from(y, tp, "model")
+    return y + params["out_b"]
 
 
 # ---------------------------------------------------------------------------

@@ -24,12 +24,21 @@ With a `mesh` (`sharding.rules.Mesh`), `decoder_forward` takes the whole
 token batch on every rank and splits its rows over the data-parallel
 axes (`rules.batch_axes`, the reference's `constrain(x, mesh, "batch",
 ...)` with its divisibility fallback); the parameters are this rank's
-blocks by `param_shardings` (FSDP / ZeRO-3, as `rules.py` lays them out),
-each layer's gathered just before use (`collectives.gather_param`, inside
-the layer's checkpoint, so remat gathers again), the MoE experts' d_ff
-left split over "model" for `layers.moe_local`.  Dense layers then run on
-whole weights, where GSPMD would run tensor-parallel heads: the same
-function.  The hidden state returned holds this rank's rows.
+blocks by `param_shardings` (FSDP / ZeRO-3, as `rules.py` lays them out:
+"embed" over "data"; "heads", "mlp" and "vocab" over "model"), each
+layer's gathered over the batch axes just before use
+(`collectives.gather_param`, inside the layer's checkpoint, so remat
+gathers again).  The blocks that `split_blocks` names keep their "model"
+split and run tensor-parallel, as GSPMD runs the reference's: GQA on whole
+heads (`attention.heads_split`) and the GLU / GELU FFNs on d_ff, each
+entered through `copy_to` and left through one `reduce_from`; the MoE
+experts' d_ff stays split for `layers.moe_local`.  Every other block (MLA,
+Mamba2, RWKV6, RWKV's channel mix, zamba2's shared block, and any whose
+split would not fall on whole heads) is gathered whole over "model" too,
+the reference layout's own fallback.  A vocabulary split over "model"
+(`vocab_tp`) makes the embedding a masked lookup summed over "model", and
+the head and `chunked_ce_loss` run on this rank's vocabulary rows.  The
+hidden state returned holds this rank's rows, whole over "model".
 """
 from __future__ import annotations
 
@@ -47,9 +56,11 @@ from repro_torch.models.layers import (gelu_mlp, gelu_mlp_specs, glu_mlp,
                                        glu_mlp_specs, layernorm, moe_local,
                                        moe_specs, rmsnorm)
 from repro_torch.models.module import ParamSpec, tree_map
-from repro_torch.sharding.collectives import gather_params, rows
+from repro_torch.sharding.collectives import (copy_to, gather_param,
+                                              gather_params, max_over,
+                                              reduce_from, rows)
 from repro_torch.sharding.rules import (P, NamedSharding, batch_axes,
-                                        tree_shardings)
+                                        sharding_for, tree_shardings)
 
 F32 = torch.float32
 
@@ -147,16 +158,17 @@ def rwkv_layer_specs(cfg: ArchConfig):
 
 def apply_mixer(cfg: ArchConfig, p, x, positions, *, mesh=None, cache=None,
                 cur_len=None, mrope_positions=None, kv_seq_shard=False,
-                kernels: bool = False):
+                tp=None, kernels: bool = False):
     """Returns (y, cache); a recurrent mixer's new state is copied into the
-    cache's views in place."""
+    cache's views in place.  `tp`: GQA's heads split over its "model"
+    ranks (`attention.gqa_attention`)."""
     if cfg.mixer == "gqa":
         return attn.gqa_attention(
             p, x, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.head_dim, rope=cfg.rope, rope_theta=cfg.rope_theta,
             mrope_sections=cfg.mrope_sections,
             mrope_positions=mrope_positions, cache=cache, cur_len=cur_len,
-            mesh=mesh, kv_seq_shard=kv_seq_shard, kernels=kernels)
+            mesh=mesh, kv_seq_shard=kv_seq_shard, tp=tp, kernels=kernels)
     if cfg.mixer == "mla":
         m = cfg.mla
         return attn.mla_attention(
@@ -190,19 +202,26 @@ def apply_mixer(cfg: ArchConfig, p, x, positions, *, mesh=None, cache=None,
 
 def apply_layer(cfg: ArchConfig, p, x, positions, *, mesh=None, dp=(),
                 moe_layer=False, cache=None, cur_len=None,
-                mrope_positions=None, kv_seq_shard=False,
+                mrope_positions=None, kv_seq_shard=False, split=frozenset(),
                 kernels: bool = False, names: bool = False):
     """Pre-norm residual block. Returns (x, cache, aux_loss): the MoE
     layer's float32 load-balance loss, None for every other layer.
     `names` tags the mixer and FFN outputs for the "names" remat policy.
     With a `mesh`, x holds this rank's rows of a batch split over `dp` and
-    `p` is whole but for the MoE experts' d_ff slice (`decoder_forward`)."""
+    `p` is whole but for the MoE experts' d_ff slice and the blocks named
+    in `split` ("mixer", "ffn"), which hold this rank's heads or d_ff and
+    run tensor-parallel over "model" (`decoder_forward`)."""
     aux = None
+
+    def tp(name):
+        return mesh if name in split else None
+
     h = _apply_norm(cfg, p["ln1"], x, kernels=kernels)
     y, cache = apply_mixer(cfg, p["mixer"], h, positions, mesh=mesh,
                            cache=cache, cur_len=cur_len,
                            mrope_positions=mrope_positions,
-                           kv_seq_shard=kv_seq_shard, kernels=kernels)
+                           kv_seq_shard=kv_seq_shard, tp=tp("mixer"),
+                           kernels=kernels)
     if names:
         y = checkpoint_name(y, "mixer_out")
     x = x + y
@@ -223,9 +242,9 @@ def apply_layer(cfg: ArchConfig, p, x, positions, *, mesh=None, dp=(),
                 capacity_factor=cfg.moe.get("capacity_factor", 1.25),
                 kernels=kernels)
         elif cfg.ffn == "gelu":
-            y = gelu_mlp(p["ffn"], h)
+            y = gelu_mlp(p["ffn"], h, tp=tp("ffn"))
         else:
-            y = glu_mlp(p["ffn"], h)
+            y = glu_mlp(p["ffn"], h, tp=tp("ffn"))
         if names:
             y = checkpoint_name(y, "ffn_out")
         x = x + y
@@ -333,47 +352,93 @@ def layer_shardings(stacked):
                     stacked)
 
 
+def _on_model(sharding, dim: int) -> bool:
+    """Whether `sharding` splits tensor dim `dim` over "model"."""
+    return any(d == dim and "model" in axes for d, axes in sharding.dims())
+
+
+def split_blocks(cfg: ArchConfig, sh) -> frozenset:
+    """The names of the blocks of one layer, laid out by `sh`, that run
+    tensor-parallel over "model": GQA blocks whose `wq` the layout splits
+    over "model" on whole heads (`attention.heads_split`), and GLU / GELU
+    FFNs whose d_ff it splits.  The layout decides; nothing is caught.
+
+        >>> from repro_torch.configs import ARCHS
+        >>> from repro_torch.sharding.rules import Mesh
+        >>> m = Mesh.abstract((16, 16), ("data", "model"))
+        >>> cfg = ARCHS["llama3.2-3b"]
+        >>> sorted(split_blocks(cfg, layer_shardings(
+        ...     param_shardings(cfg, m)["layers"])))
+        ['ffn']
+    """
+    out = set()
+    for name, block in sh.items():
+        keys = set(block) if isinstance(block, dict) else set()
+        if keys == {"wq", "wk", "wv", "wo"}:
+            w = block["wq"]
+            if _on_model(w, 1) and attn.heads_split(
+                    cfg.n_heads, cfg.n_kv_heads, w.mesh):
+                out.add(name)
+        elif keys in ({"gate", "up", "down"}, {"in", "in_b", "out", "out_b"}):
+            if _on_model(block["gate" if "gate" in keys else "in"], 1):
+                out.add(name)
+    return frozenset(out)
+
+
+# leaves held whole over "model" whose use inside a split block is a part
+# of the work: each model rank's gradient is a part, summed over "model"
+_PART_LEAVES = frozenset({"wk", "wv", "in_b"})
+
+
 def _layer_gather(cfg, stacked_sh, dp, moe_layer):
-    """A function gathering one layer of a group laid out by `stacked_sh`
-    (None without a mesh); an MoE layer's FFN keeps its d_ff split over
-    "model" (`layers.moe_local`)."""
+    """(a function gathering one layer of a group laid out by
+    `stacked_sh`, the names of the layer's tensor-parallel blocks), or
+    (None, frozenset()) without a mesh.  The split blocks (`split_blocks`)
+    and an MoE layer's FFN (`layers.moe_local`) keep their "model" split;
+    the split blocks' `_PART_LEAVES` sum their gradients over "model"."""
     if stacked_sh is None:
-        return None
+        return None, frozenset()
     sh = layer_shardings(stacked_sh)
+    split = split_blocks(cfg, sh)
     moe = cfg.ffn == "moe" and moe_layer
     gate = sh["ffn"]["gate"] if moe else None
-    if moe and gate.mesh.size("model") > 1 and not any(
-            d == 2 and "model" in axes for d, axes in gate.dims()):
+    if moe and gate.mesh.size("model") > 1 and not _on_model(gate, 2):
         raise ValueError("the experts' d_ff does not split over the "
                          "'model' axis")
+    part = tuple(dp) + ("model",)
 
     def gather(lp):
-        if not moe:
-            return gather_params(lp, sh, dp)
-        out = gather_params({k: v for k, v in lp.items() if k != "ffn"},
-                            {k: v for k, v in sh.items() if k != "ffn"}, dp)
-        out["ffn"] = gather_params(lp["ffn"], sh["ffn"], dp,
-                                   keep=("model",))
+        out = {}
+        for name, sub in lp.items():
+            if name in split:
+                out[name] = {k: gather_param(
+                    v, sh[name][k], part if k in _PART_LEAVES else dp,
+                    keep=("model",)) for k, v in sub.items()}
+            elif moe and name == "ffn":
+                out[name] = gather_params(sub, sh[name], dp, keep=("model",))
+            else:
+                out[name] = gather_params(sub, sh[name], dp)
         return out
 
-    return gather
+    return gather, split
 
 
 def _run_layers(cfg, layers, x, positions, *, moe_layer=False, caches=None,
                 cur_len=None, mrope_positions=None, kernels: bool = False,
-                offset: int = 0, remat=False, mesh=None, dp=(), gather=None,
-                kv_seq_shard=False):
+                offset: int = 0, remat=False, mesh=None, dp=(),
+                gather=(None, frozenset()), kv_seq_shard=False):
     """Apply a stacked layer group in order (the reference's `lax.scan`).
     layers: the group's per-layer trees (`_unstack`); caches: the group's
     cache tree stacked on axis 0, layer `i` at `offset + i`, written in
     place, or None; remat: see `remat_layer` (only without caches);
-    gather: puts a layer's parameter blocks together (`_layer_gather`),
-    inside the layer's checkpoint.
+    gather: `_layer_gather`'s (function putting a layer's parameter blocks
+    together, inside the layer's checkpoint; the tensor-parallel blocks).
 
     Returns (x, aux): aux is the MoE layers' load-balance loss summed, or
     None."""
     aux = None
     names = remat == "names"
+    gather, split = gather
     for i, lp in enumerate(layers):
         cache_i = None if caches is None else _index(caches, offset + i)
 
@@ -384,8 +449,8 @@ def _run_layers(cfg, layers, x, positions, *, moe_layer=False, caches=None,
                                moe_layer=moe_layer, cache=cache_i,
                                cur_len=cur_len,
                                mrope_positions=mrope_positions,
-                               kv_seq_shard=kv_seq_shard, kernels=kernels,
-                               names=names)[::2]
+                               kv_seq_shard=kv_seq_shard, split=split,
+                               kernels=kernels, names=names)[::2]
 
         x, aux_l = remat_layer(layer, remat if caches is None else False)(x)
         if aux_l is not None:
@@ -441,7 +506,8 @@ def decoder_forward(cfg: ArchConfig, params, tokens, *, mesh=None,
             return params[name]
         return gather_params(params[name], sh[name], dp)
 
-    embed = whole("embed")
+    tp = vocab_tp(cfg, mesh)
+    embed = vocab_table(cfg, params, "embed", mesh, dp)
     kernels = resolve_kernels(kernels, embed.device)
     B, S = tokens.shape[:2]
     if positions is None:
@@ -450,7 +516,7 @@ def decoder_forward(cfg: ArchConfig, params, tokens, *, mesh=None,
         positions = positions.expand(B, S)
     if mrope_positions is None and cfg.rope == "mrope":
         mrope_positions = positions[None].expand(3, B, S)
-    x = embed[tokens]
+    x = embed_lookup(embed, tokens, tp)
     del embed
     run = dict(cur_len=cur_len, kernels=kernels, remat=remat, mesh=mesh,
                dp=dp)
@@ -528,16 +594,65 @@ def logits_f32(x, head):
     return out.reshape(*x.shape[:-1], head.shape[0])
 
 
-def head_of(cfg: ArchConfig, params, mesh=None, dp=()):
-    """The output head (the tied embedding or `lm_head`), whole (gathered
-    from this rank's block with a mesh)."""
-    name = "embed" if cfg.tie_embeddings else "lm_head"
+def vocab_tp(cfg: ArchConfig, mesh):
+    """`mesh` when its layout splits the vocabulary (the embedding's and
+    the head's rows) over "model", else None.
+
+        >>> from repro_torch.configs import ARCHS
+        >>> from repro_torch.sharding.rules import Mesh
+        >>> m = Mesh.abstract((16, 16), ("data", "model"))
+        >>> [vocab_tp(ARCHS[a], m) is m for a in ("llama3.2-3b",
+        ...                                       "whisper-large-v3")]
+        [True, False]
+    """
+    if mesh is None:
+        return None
+    sh = sharding_for(("vocab", None), (cfg.vocab, cfg.d_model), mesh)
+    return mesh if _on_model(sh, 0) else None
+
+
+def vocab_table(cfg: ArchConfig, params, name: str, mesh=None, dp=()):
+    """The (vocab, D) table `name` ("embed" or "lm_head"), whole, or with
+    a mesh this rank's vocabulary rows where `vocab_tp` splits them
+    (gathered over the batch axes only)."""
     if mesh is None:
         return params[name]
-    return gather_params(params[name], param_shardings(cfg, mesh)[name], dp)
+    keep = ("model",) if vocab_tp(cfg, mesh) is not None else ()
+    return gather_params(params[name], param_shardings(cfg, mesh)[name], dp,
+                         keep=keep)
+
+
+def head_of(cfg: ArchConfig, params, mesh=None, dp=()):
+    """The output head (the tied embedding or `lm_head`): `vocab_table`."""
+    return vocab_table(cfg, params, "embed" if cfg.tie_embeddings
+                       else "lm_head", mesh, dp)
+
+
+def _vocab_rows(ids, tp, n: int):
+    """(this rank's row of each id, 0 for the ids outside its block; which
+    ids fall in it) of a vocabulary split over "model" in blocks of n."""
+    local = ids.long() - tp.index("model") * n
+    ok = (local >= 0) & (local < n)
+    return torch.where(ok, local, 0), ok
+
+
+def embed_lookup(table, tokens, tp=None):
+    """`table[tokens]`; with `tp`, `table` holds this rank's block of rows
+    of a vocabulary split over "model": the ids outside it look up zeros,
+    and the rows sum over "model" (each id's row comes from one rank)."""
+    if tp is None:
+        return table[tokens]
+    idx, ok = _vocab_rows(tokens, tp, table.shape[0])
+    return reduce_from(torch.where(ok[..., None], table[idx], 0), tp,
+                       "model")
 
 
 def lm_head(cfg: ArchConfig, params, x, *, mesh=None, dp=()):
+    """float32 logits, over this rank's vocabulary rows where `vocab_tp`
+    splits them (`zoo` gathers them over "model")."""
+    tp = vocab_tp(cfg, mesh)
+    if tp is not None:
+        x = copy_to(x, tp, "model")
     return logits_f32(x, head_of(cfg, params, mesh, dp))
 
 
@@ -545,16 +660,31 @@ def lm_head(cfg: ArchConfig, params, x, *, mesh=None, dp=()):
 # chunked cross entropy
 # ---------------------------------------------------------------------------
 
-def _ce_block(x, head, labels):
-    """Summed softmax cross entropy of one sequence block, float32 logits."""
-    logits = logits_f32(x, head)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+def _ce_block(x, head, labels, tp=None):
+    """Summed softmax cross entropy of one sequence block, float32 logits.
+    `tp`: `head` holds this rank's rows of a vocabulary split over its
+    "model" ranks: the logsumexp's shift is the max over "model" (no
+    gradient), its sum of exponentials and the target logit (from the
+    rank holding the label) sum over "model"."""
+    if tp is None:
+        logits = logits_f32(x, head)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return torch.sum(lse - tgt)
+    logits = logits_f32(copy_to(x, tp, "model"), head)
+    m = max_over(logits.amax(dim=-1), tp, "model")
+    lse = m + torch.log(reduce_from(
+        torch.sum(torch.exp(logits - m[..., None]), dim=-1), tp, "model"))
+    idx, ok = _vocab_rows(labels, tp, head.shape[0])
+    tgt = torch.gather(logits, -1, idx[..., None])[..., 0]
+    tgt = reduce_from(torch.where(ok, tgt, 0.0), tp, "model")
     return torch.sum(lse - tgt)
 
 
-def chunked_ce_loss(x, embed, labels, *, block: int = 512):
-    """x: (B,S,D) final hidden; embed: (V,D) head; labels: (B,S).
+def chunked_ce_loss(x, embed, labels, *, block: int = 512, tp=None):
+    """x: (B,S,D) final hidden; embed: (V,D) head; labels: (B,S); tp: the
+    mesh whose "model" ranks split the vocabulary, `embed` this rank's
+    rows (`vocab_tp`), or None.
 
     Mean softmax cross entropy over sequence blocks of `block` (S // block
     blocks of equal length, one block when S < block), each block under
@@ -567,6 +697,6 @@ def chunked_ce_loss(x, embed, labels, *, block: int = 512):
     lb = labels.reshape(B, nb, bs)
     total = x.new_zeros((), dtype=F32)
     for i in range(nb):
-        total = total + checkpoint(_ce_block, xb[:, i], embed, lb[:, i],
+        total = total + checkpoint(_ce_block, xb[:, i], embed, lb[:, i], tp,
                                    use_reentrant=False)
     return total / (B * S)

@@ -20,9 +20,12 @@ backward.  `input_specs` gives each cell's data arguments as meta tensors
 
 `mesh` (`sharding.rules.Mesh`): the batch (whole on every rank) splits
 over the data-parallel axes, the parameters are this rank's blocks
-(`transformer.param_shardings`), the caches its blocks by
-`cache_shardings`, and the logits (or the loss) come back whole on every
-rank.  `decode_step(kv_seq_shard=True)` runs GQA's decode attention
+(`transformer.param_shardings`), the dense blocks the layout splits over
+"model" run tensor-parallel (`transformer.split_blocks`), the caches are
+this rank's blocks by `cache_shardings`, and the logits (or the loss) come
+back whole on every rank: the last-token logits of a vocabulary split over
+"model" gathered over it (`collectives.gather_from`), the loss through the
+vocab-parallel cross entropy.  `decode_step(kv_seq_shard=True)` runs GQA's decode attention
 split-KV over the "data" ranks (`layers.decode_attention_kv_sharded`),
 on caches laid out so by `cache_shardings(..., kv_seq_shard=True)` and
 filled by `prefill(..., kv_seq_shard=True)`; without a mesh it is the
@@ -40,7 +43,7 @@ from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.module import ParamSpec, count_params, stack_specs
 from repro_torch.models.ssm import CONV_W
-from repro_torch.sharding.collectives import mean_over, rows
+from repro_torch.sharding.collectives import gather_from, mean_over, rows
 from repro_torch.sharding.rules import (DEFAULT_RULES, all_gather,
                                         batch_axes, tree_shardings)
 
@@ -187,6 +190,21 @@ def _whole_rows(x, mesh, dp):
     return x if mesh is None else all_gather(x, mesh, dp, 0)
 
 
+def _logits(cfg, params, x, mesh, dp):
+    """float32 logits (B, V) of the last hidden rows `x`, whole on every
+    rank: this rank's vocabulary gathered over "model", its rows over
+    `dp`."""
+    logits = tfm.lm_head(cfg, params, x, mesh=mesh, dp=dp)
+    if tfm.vocab_tp(cfg, mesh) is not None:
+        logits = gather_from(logits, mesh, "model", -1)
+    return _whole_rows(logits, mesh, dp)
+
+
+def _ce(cfg, params, x, labels, mesh, dp):
+    return tfm.chunked_ce_loss(x, tfm.head_of(cfg, params, mesh, dp), labels,
+                               tp=tfm.vocab_tp(cfg, mesh))
+
+
 def train_loss(cfg: ArchConfig, params, batch, *, mesh=None, remat=True):
     """batch: tokens (B,S), labels (B,S) [+ enc_embeds (B,Te,D) for
     whisper, mrope_positions (3,B,S) for M-RoPE].
@@ -204,14 +222,13 @@ def train_loss(cfg: ArchConfig, params, batch, *, mesh=None, remat=True):
                                 kernels=False, remat=remat)
         x, _ = encdec.decode_stack(cfg, params, batch["tokens"], enc_out,
                                    mesh=mesh, kernels=False, remat=remat)
-        loss = tfm.chunked_ce_loss(x, tfm.head_of(cfg, params, mesh, dp),
-                                   labels)
+        loss = _ce(cfg, params, x, labels, mesh, dp)
         return loss if mesh is None else mean_over(loss, mesh, dp)
     x, _, aux = tfm.decoder_forward(
         cfg, params, batch["tokens"], mesh=mesh,
         mrope_positions=batch.get("mrope_positions"), kernels=False,
         remat=remat)
-    loss = tfm.chunked_ce_loss(x, tfm.head_of(cfg, params, mesh, dp), labels)
+    loss = _ce(cfg, params, x, labels, mesh, dp)
     if mesh is not None:
         loss = mean_over(loss, mesh, dp)
     if cfg.ffn == "moe":
@@ -232,14 +249,12 @@ def prefill(cfg: ArchConfig, params, batch, caches, *, mesh=None,
         x, caches = encdec.decode_stack(cfg, params, batch["tokens"], enc_out,
                                         mesh=mesh, caches=caches, cur_len=0,
                                         kernels=kernels)
-        logits = tfm.lm_head(cfg, params, x[:, -1], mesh=mesh, dp=dp)
-        return _whole_rows(logits, mesh, dp), caches
+        return _logits(cfg, params, x[:, -1], mesh, dp), caches
     x, caches, _ = tfm.decoder_forward(
         cfg, params, batch["tokens"], mesh=mesh, caches=caches, cur_len=0,
         mrope_positions=batch.get("mrope_positions"),
         kv_seq_shard=kv_seq_shard, kernels=kernels)
-    logits = tfm.lm_head(cfg, params, x[:, -1], mesh=mesh, dp=dp)
-    return _whole_rows(logits, mesh, dp), caches
+    return _logits(cfg, params, x[:, -1], mesh, dp), caches
 
 
 def decode_step(cfg: ArchConfig, params, tokens, caches, cur_len: int, *,
@@ -254,14 +269,12 @@ def decode_step(cfg: ArchConfig, params, tokens, caches, cur_len: int, *,
         x, caches = encdec.decode_stack(cfg, params, tokens, enc_out,
                                         mesh=mesh, caches=caches,
                                         cur_len=cur_len, kernels=kernels)
-        logits = tfm.lm_head(cfg, params, x[:, -1], mesh=mesh, dp=dp)
-        return _whole_rows(logits, mesh, dp), caches
+        return _logits(cfg, params, x[:, -1], mesh, dp), caches
     x, caches, _ = tfm.decoder_forward(cfg, params, tokens, mesh=mesh,
                                        caches=caches, cur_len=cur_len,
                                        kv_seq_shard=kv_seq_shard,
                                        kernels=kernels)
-    logits = tfm.lm_head(cfg, params, x[:, -1], mesh=mesh, dp=dp)
-    return _whole_rows(logits, mesh, dp), caches
+    return _logits(cfg, params, x[:, -1], mesh, dp), caches
 
 
 # ---------------------------------------------------------------------------

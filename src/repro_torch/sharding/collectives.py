@@ -10,13 +10,23 @@ the parts:
 
   gather_param   a parameter's blocks put back together before use, the
                  FSDP gather (`rules.py`: "GSPMD all-gathers weights per
-                 layer"); backward sums the gradient over the ranks the
-                 batch splits over, then keeps this rank's block
+                 layer"), except along the axes in `keep`, whose split
+                 stays (the tensor-parallel blocks keep "model"); backward
+                 sums the gradient over `dp` (the ranks the batch splits
+                 over, and "model" for a leaf held whole over "model" that
+                 feeds split work), then keeps this rank's block
   copy_to        identity; backward sums over `axes` (a replicated value
                  entering work split over `axes`, Megatron's "f")
   reduce_from    sum over `axes`; backward identity (work split over
                  `axes` leaving as one replicated value, Megatron's "g",
                  `jax.lax.psum`)
+  max_over       max over `axes`, no gradient (the shift of a logsumexp
+                 over a vocabulary split over `axes`, whose value does not
+                 depend on it)
+  gather_from    the blocks of `x` along `dim` from every rank of `axes`;
+                 backward keeps this rank's slice of the (replicated)
+                 cotangent (the whole logits from a vocabulary split over
+                 "model")
   mean_over      mean over `axes` of per-rank values (`jax.lax.pmean`);
                  backward divides the (replicated) cotangent by the count
   shift          x of the rank before along `axis`, in a ring
@@ -73,8 +83,11 @@ class _GatherParam(torch.autograd.Function):
 def gather_param(x: torch.Tensor, sharding: NamedSharding, dp=(),
                  keep=()) -> torch.Tensor:
     """The whole parameter from this rank's block `x` (laid out by
-    `sharding`), except along mesh axes in `keep`, whose split stays.
-    `dp`: the axes the batch is split over, whose ranks' gradients sum."""
+    `sharding`), except along mesh axes in `keep`, whose split stays (a
+    tensor-parallel block keeps its "model" split: its heads or d_ff
+    slice).  `dp`: the axes whose ranks' gradients sum: those the batch is
+    split over, and "model" for a leaf that is whole over "model" but
+    feeds work split over it (each model rank's gradient is a part)."""
     mesh = sharding.mesh
     dims = [(d, tuple(a for a in axes if a not in keep))
             for d, axes in sharding.dims()]
@@ -123,6 +136,32 @@ def reduce_from(x, mesh: Mesh, axes):
     if mesh.size(axes) == 1:
         return x
     return _ReduceFrom.apply(x, mesh, axes)
+
+
+def max_over(x, mesh: Mesh, axes):
+    """The elementwise max of `x` over the ranks of `axes`, no gradient."""
+    return all_reduce(x.detach(), mesh, axes, dist.ReduceOp.MAX)
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // ctx.mesh.size(ctx.axes)
+        return g.narrow(ctx.dim, ctx.mesh.index(ctx.axes) * n, n), None, \
+            None, None
+
+
+def gather_from(x, mesh: Mesh, axes, dim: int = -1):
+    """Every rank's block of `x` along `dim` over `axes`, concatenated in
+    the axes' row-major order; backward keeps this rank's slice."""
+    if mesh.size(axes) == 1:
+        return x
+    return _GatherFrom.apply(x, mesh, axes, dim % x.dim())
 
 
 class _MeanOver(torch.autograd.Function):

@@ -1,7 +1,8 @@
 """Inputs and reference results of the multi-device tests
-(`test_torch_{mesh,multidevice}.py`), computed in the pytest process with
-the JAX package on its host devices; the gloo ranks get only the numpy
-inputs (`_torch_mesh_worker`)."""
+(`test_torch_{mesh,multidevice,tensor_parallel}.py`), computed in the
+pytest process with the JAX package on its host devices; the gloo ranks
+get only the numpy inputs (`_torch_mesh_worker`)."""
+import dataclasses
 import functools
 
 import jax
@@ -11,9 +12,14 @@ import torch
 from _torch_inputs import TOL, normal
 from _torch_mesh_worker import to_wire
 
+from repro.configs import ARCHS as REF_ARCHS
+from repro.configs import reduce_config as ref_reduce
 from repro.launch.mesh import compat_make_mesh, compat_set_mesh
 from repro.models import layers as ref_layers
+from repro.models import zoo as ref_zoo
 from repro.models.module import init_from_specs as ref_init
+from repro.sharding.rules import sharding_for as ref_sharding_for
+from repro.sharding.rules import tree_shardings as ref_tree_shardings
 
 from repro_torch.models import layers
 
@@ -100,3 +106,99 @@ def check_moe(case, got: list):
             top_k=2, capacity_factor=case["cf"])
         assert not np.allclose(one.float().numpy(), want,
                                **TOL[case["dtype"]])
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel dense layers: reduced configs on (data, model) meshes
+# ---------------------------------------------------------------------------
+
+TP_B, TP_S, TP_STEPS, TP_MAX_LEN = 4, 8, 4, 16
+_BATCH_AXES = {"tokens": ("batch", None), "labels": ("batch", None),
+               "enc_embeds": ("batch", None, None),
+               "mrope_positions": (None, "batch", None)}
+
+
+def ref_cfg(spec):
+    """The reference's config of a case's `cfg` spec (arch, reduce_config
+    keywords, dtype name[, fields to replace])."""
+    name, kw, dtype, *over = spec
+    rc = dataclasses.replace(ref_reduce(REF_ARCHS[name], **kw),
+                             dtype=getattr(jnp, dtype))
+    return dataclasses.replace(rc, **over[0]) if over else rc
+
+
+def tp_case(case_id: str, spec, mesh, *, train=False, kv=False,
+            seed=0) -> dict:
+    """A case's inputs: the reference's seeded weights, B x S tokens (and
+    labels, whisper's frames, three distinct M-RoPE streams) from numpy,
+    and TP_STEPS decode tokens."""
+    rc = ref_cfg(spec)
+    params = ref_init(ref_zoo.build_param_specs(rc), jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(1, rc.vocab, (TP_B, TP_S))}
+    if train:
+        batch["labels"] = rng.integers(0, rc.vocab, (TP_B, TP_S))
+    if rc.family == "encdec":
+        batch["enc_embeds"] = normal((TP_B, rc.enc["enc_len"], rc.d_model),
+                                     seed + 1)
+    if rc.rope == "mrope":
+        t = np.arange(TP_S)
+        batch["mrope_positions"] = np.stack(
+            [np.broadcast_to(t, (TP_B, TP_S)),
+             np.broadcast_to(t // 2, (TP_B, TP_S)),
+             np.broadcast_to(t % 3, (TP_B, TP_S))])
+    return {"id": case_id, "mesh": tuple(mesh), "cfg": spec,
+            "params": to_wire(jax.tree.map(np.asarray, params)),
+            "batch": batch, "max_len": TP_MAX_LEN, "kv": kv,
+            "steps": rng.integers(1, rc.vocab, (TP_STEPS, TP_B))}
+
+
+def _ref_placed(case):
+    """(reference config, mesh, params placed by its `tree_shardings`,
+    batch placed by the dry run's batch layouts)."""
+    rc = ref_cfg(case["cfg"])
+    mesh = compat_make_mesh(case["mesh"], ("data", "model"))
+    pspecs = ref_zoo.build_param_specs(rc)
+    params = jax.device_put(ref_init(pspecs, jax.random.PRNGKey(0)),
+                            ref_tree_shardings(pspecs, mesh))
+    batch = {}
+    for k, v in case["batch"].items():
+        v = jnp.asarray(v, rc.dtype if k == "enc_embeds" else jnp.int32)
+        batch[k] = jax.device_put(v, ref_sharding_for(_BATCH_AXES[k],
+                                                      v.shape, mesh))
+    return rc, mesh, params, batch
+
+
+def tp_serve_reference(case) -> list:
+    """The reference's jitted `zoo.prefill` and `decode_step`s of a case on
+    a JAX host mesh of its shape: every step's float32 logits."""
+    rc, mesh, params, batch = _ref_placed(case)
+    cspecs = ref_zoo.build_cache_specs(rc, TP_B, case["max_len"])
+    caches = jax.device_put(ref_init(cspecs, jax.random.PRNGKey(0)),
+                            ref_tree_shardings(cspecs, mesh))
+    enc = None
+    if rc.family == "encdec":
+        enc = jnp.zeros((TP_B, rc.enc["enc_len"], rc.d_model), rc.dtype)
+    with compat_set_mesh(mesh):
+        logits, caches = jax.jit(functools.partial(
+            ref_zoo.prefill, rc, mesh=mesh))(params, batch, caches)
+        out = [np.asarray(logits, np.float32)]
+        step = jax.jit(lambda p, t, c, n, e: ref_zoo.decode_step(
+            rc, p, t, c, n, mesh=mesh, enc_out=e))
+        for t, tok in enumerate(case["steps"]):
+            logits, caches = step(params, jnp.asarray(tok, jnp.int32)[:, None],
+                                  caches, jnp.int32(TP_S + t), enc)
+            out.append(np.asarray(logits, np.float32))
+    return out
+
+
+def tp_train_reference(case):
+    """The reference's jitted `zoo.train_loss` (remat on) and its gradient
+    on a JAX host mesh of the case's shape: (loss, [whole gradients])."""
+    rc, mesh, params, batch = _ref_placed(case)
+    with compat_set_mesh(mesh):
+        loss, grads = jax.jit(jax.value_and_grad(
+            lambda p, b: ref_zoo.train_loss(rc, p, b, mesh=mesh,
+                                            remat=True)))(params, batch)
+    return float(loss), [np.asarray(g, np.float32)
+                         for g in jax.tree.leaves(grads)]

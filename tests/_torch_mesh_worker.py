@@ -135,16 +135,18 @@ def _params(inputs, key="params"):
 
 
 def _cfg(inputs):
+    """The reduced config of `inputs["cfg"]`: (arch, `reduce_config`
+    keywords, dtype name[, fields to replace])."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import ARCHS, reduce_config
-    name, kw, dtype = inputs["cfg"]
+    name, kw, dtype, *over = inputs["cfg"]
     cfg = reduce_config(ARCHS[name], **kw)
     if dtype == "float32":
         cfg = dataclasses.replace(cfg, dtype=torch.float32)
-    return cfg
+    return dataclasses.replace(cfg, **over[0]) if over else cfg
 
 
 # ---------------------------------------------------------------------------
@@ -334,23 +336,32 @@ def moe_mesh(rank, world, inputs):
 @scenario
 def serve_mesh(rank, world, inputs):
     """`ServeEngine(mesh=)` on a (2, 2) mesh serving the seeded requests;
-    the same on one device in the same process for its tokens."""
-    import numpy as np
+    the same on one device in the same process for its tokens; both again
+    on the weights cast to float32."""
+    import dataclasses
 
+    import numpy as np
+    import torch
+
+    from repro_torch.models.module import tree_map
     from repro_torch.serve.engine import Request, ServeEngine
     cfg = _cfg({"cfg": inputs["serve_cfg"]})
     params = _params(inputs, "serve_params")
     mesh = _mesh((2, 2), ("data", "model"))
     out = {}
-    for name, m in (("mesh", mesh), ("plain", None)):
-        engine = ServeEngine(cfg, params, mesh=m, batch_slots=2, max_len=48,
-                             prompt_len=16, device="cpu")
-        reqs = [Request(prompt=np.asarray(p), max_new_tokens=4)
-                for p in inputs["prompts"]]
-        engine.serve(reqs)
-        out[name] = [(r.done, list(r.out_tokens)) for r in reqs]
-        out[name + "_cache"] = tuple(
-            engine.caches["layers"]["k"].shape)
+    for suffix, c, p in (("", cfg, params), ("_f32", dataclasses.replace(
+            cfg, dtype=torch.float32), tree_map(lambda x: x.float(),
+                                                params))):
+        for name, m in (("mesh", mesh), ("plain", None)):
+            engine = ServeEngine(c, p, mesh=m, batch_slots=2, max_len=48,
+                                 prompt_len=16, device="cpu")
+            reqs = [Request(prompt=np.asarray(q), max_new_tokens=4)
+                    for q in inputs["prompts"]]
+            engine.serve(reqs)
+            out[name + suffix] = [(r.done, list(r.out_tokens))
+                                  for r in reqs]
+            out[name + suffix + "_cache"] = tuple(
+                engine.caches["layers"]["k"].shape)
     return out
 
 
@@ -569,4 +580,145 @@ def pipeline_mesh(rank, world, inputs):
         grads = torch.autograd.grad(loss, leaves)
         out.append({"loss": float(loss.detach()), "stage": stage,
                     "grads": [_np(g) for g in grads]})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel dense layers
+# ---------------------------------------------------------------------------
+
+def _tp_setup(case, world):
+    """(cfg, mesh, this rank's parameter blocks, their shardings, batch)
+    of a tensor-parallel case, or None when its mesh is not this world."""
+    import torch
+
+    from repro_torch.models.transformer import param_shardings
+    from repro_torch.sharding.rules import shard_tree
+    if case["mesh"][0] * case["mesh"][1] != world:
+        return None
+    cfg = _cfg(case)
+    mesh = _mesh(case["mesh"], ("data", "model"))
+    sh = param_shardings(cfg, mesh)
+    batch = {k: _tensor(v, cfg.dtype if k == "enc_embeds" else None)
+             for k, v in case["batch"].items()}
+    return cfg, mesh, shard_tree(_params(case), sh), sh, batch
+
+
+def _tp_split(cfg, mesh, sh) -> dict:
+    """{stacked group: its tensor-parallel blocks}, and "vocab"."""
+    from repro_torch.models import transformer as tfm
+    out = {g: sorted(tfm.split_blocks(cfg, tfm.layer_shardings(sh[g])))
+           for g in ("layers", "dense_layers", "enc_layers", "dec_layers")
+           if g in sh}
+    out["vocab"] = tfm.vocab_tp(cfg, mesh) is not None
+    return out
+
+
+@scenario
+def tp_serve(rank, world, inputs):
+    """`zoo.prefill` and `decode_step`s (the case's tokens) on each case's
+    (data, model) mesh that covers the world, the parameters and caches
+    this rank's blocks, split-KV where the case asks: every step's
+    logits, the tensor-parallel blocks, and the cache block's shape."""
+    from repro_torch.models import encdec, zoo
+    from repro_torch.models.module import init_from_specs
+    from repro_torch.sharding.rules import local_specs
+    out = []
+    for case in inputs["tp_serve"]:
+        setup = _tp_setup(case, world)
+        if setup is None:
+            continue
+        cfg, mesh, p, sh, batch = setup
+        B, S = batch["tokens"].shape
+        T, kv = case["max_len"], case.get("kv", False)
+        caches = init_from_specs(local_specs(
+            zoo.build_cache_specs(cfg, B, T),
+            zoo.cache_shardings(cfg, B, T, mesh, kv)), 0, device="cpu")
+        logits, caches = zoo.prefill(cfg, p, batch, caches, mesh=mesh,
+                                     kv_seq_shard=kv)
+        steps = [_np(logits)]
+        enc = None
+        if cfg.family == "encdec":
+            enc = encdec.encode(cfg, p, batch["enc_embeds"], mesh=mesh)
+        for t, tok in enumerate(case["steps"]):
+            logits, caches = zoo.decode_step(
+                cfg, p, _tensor(tok)[:, None], caches, S + t, mesh=mesh,
+                kv_seq_shard=kv, enc_out=enc)
+            steps.append(_np(logits))
+        k = caches["self_k"] if cfg.family == "encdec" else \
+            caches["layers"]["k"]
+        out.append({"id": case["id"], "logits": steps,
+                    "split": _tp_split(cfg, mesh, sh),
+                    "cache": tuple(k.shape)})
+    return out
+
+
+@scenario
+def tp_train(rank, world, inputs):
+    """`zoo.train_loss` (remat on) and its gradients on each case's mesh
+    that covers the world: the loss, every gradient leaf put back whole
+    from the ranks' blocks, and this rank's block shapes."""
+    import torch
+
+    from repro_torch.models import zoo
+    from repro_torch.models.module import tree_leaves, tree_unflatten
+    from repro_torch.sharding.rules import gather_tree
+    out = []
+    for case in inputs["tp_train"]:
+        setup = _tp_setup(case, world)
+        if setup is None:
+            continue
+        cfg, mesh, p, sh, batch = setup
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(p)]
+        loss = zoo.train_loss(cfg, tree_unflatten(p, leaves), batch,
+                              mesh=mesh, remat=True)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        whole = gather_tree(tree_unflatten(p, list(grads)), sh)
+        out.append({"id": case["id"], "loss": float(loss.detach()),
+                    "grads": [_np(g) for g in tree_leaves(whole)],
+                    "split": _tp_split(cfg, mesh, sh),
+                    "local": [tuple(g.shape) for g in grads]})
+    return out
+
+
+@scenario
+def tp_collectives(rank, world, inputs):
+    """`gather_from` and `max_over` over "model" on a (1, world) mesh, and
+    `embed_lookup` of a vocabulary split over it, with their gradients,
+    against the same functions of whole tensors in one process:
+    {name: (this rank's result, the one-process result's part)}."""
+    import torch
+
+    from repro_torch.models.transformer import embed_lookup
+    from repro_torch.sharding import collectives as C
+    mesh = _mesh((1, world), ("data", "model"))
+    m = mesh.index("model")
+    g = torch.Generator().manual_seed(0)
+    X = torch.randn(3, 4 * world, generator=g, dtype=torch.float64)
+    c = torch.randn(3, 4 * world, generator=g, dtype=torch.float64)
+    out = {}
+    # gather_from: each rank's columns back whole; backward keeps the slice
+    x = C.rows(X, mesh, "model", 1).clone().requires_grad_()
+    y = C.gather_from(x, mesh, "model", -1)
+    (gx,) = torch.autograd.grad(torch.sum(y * y * c), [x])
+    out["gather_from"] = ((y.detach().numpy(), gx.numpy()),
+                          (X.numpy(), C.rows(2 * X * c, mesh, "model",
+                                             1).numpy()))
+    # max_over: the max of every rank's block, no gradient
+    mx = C.max_over(x.amax(dim=-1), mesh, "model")
+    out["max_over"] = ((mx.numpy(), mx.requires_grad),
+                       (X.amax(dim=-1).numpy(), False))
+    # the vocab-parallel lookup and its table gradient
+    table = C.rows(X.t().contiguous(), mesh, "model").clone()
+    table.requires_grad_()
+    ids = torch.tensor([[0, 4 * world - 1, 5], [2, 2, 4 * world - 2]])
+    e = embed_lookup(table, ids, mesh)
+    (gt,) = torch.autograd.grad(torch.sum(e * e), [table])
+    whole = X.t().contiguous().requires_grad_()
+    (gw,) = torch.autograd.grad(torch.sum(whole[ids] ** 2), [whole])
+    out["embed_lookup"] = ((e.detach().numpy(), gt.numpy()),
+                           (whole[ids].detach().numpy(),
+                            C.rows(gw, mesh, "model").numpy()))
+    del m
     return out

@@ -4,8 +4,11 @@ recorder counts a Python loop of matmuls exactly (the port's loops are
 unrolled: no trip counts), an abstract mesh's collectives in exact ring
 bytes by kind, the roofline's terms exactly with the H100 constants, and
 the per-device dot FLOPs of reduced llama, zamba2 and deepseek-moe at
-train, prefill and decode on an (8, 1) data-only mesh against the
-reference walker over the reference's compiled program on 8 host devices.
+train, prefill and decode on an (8, 1) data-only mesh and a (2, 4) (data,
+model) mesh against the reference walker over the reference's compiled
+program on 8 host devices; at (2, 4) the tensor-parallel identity: a
+device's FLOPs are the (2, 1) run's less 3/4 of the products whose
+weights split over "model".
 
 The reference's programs are built here as its `launch/dryrun.py` builds
 them, without importing that module (it sets 512 host devices on
@@ -138,12 +141,12 @@ B, S = 8, 64
 MESH = (8, 1)
 
 
-def _ref_program_flops(arch: str, kind: str) -> float:
+def _ref_program_flops(arch: str, kind: str, mesh_shape=MESH) -> float:
     """Per-device dot FLOPs of the reference's compiled cell (the reduced
-    config at B x S on an (8, 1) mesh), by the reference walker."""
+    config at B x S on a (data, model) mesh), by the reference walker."""
     cfg = ref_reduce(REF_ARCHS[arch])
     shape = RefShape("cell", kind, S, B)
-    mesh = compat_make_mesh(MESH, ("data", "model"))
+    mesh = compat_make_mesh(mesh_shape, ("data", "model"))
     pspecs = ref_zoo.build_param_specs(cfg)
     params_abs = ref_abstract(pspecs)
     params_sh = ref_tree_shardings(pspecs, mesh)
@@ -189,38 +192,86 @@ def _port_cell(monkeypatch, arch: str, kind: str, mesh_shape=MESH):
                              device="cpu")
 
 
+# archs whose port runs a block gathered over "model" that GSPMD splits in
+# the reference (ROADMAP queue 3, item 13): on zamba2 every product but
+# the head (the Mamba2 layers and the shared attention block, item 17b)
+GATHERED_OVER_MODEL = {"zamba2-2.7b"}
+
+
+@pytest.mark.parametrize("mesh_shape", [MESH, (2, 4)], ids=lambda m:
+                         "x".join(map(str, m)))
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "zamba2-2.7b",
                                   "deepseek-moe-16b"])
-def test_port_flops_match_the_reference_walker(monkeypatch, arch, kind):
+def test_port_flops_match_the_reference_walker(monkeypatch, arch, kind,
+                                               mesh_shape):
     """Prefill and decode: the same dots (exact to float rounding of the
     sums).  Train: the port's chunked cross entropy runs each block under
     a checkpoint, so its head product runs once more than in the
     reference's compiled step (4 passes against 3: 2 * tokens * D * V a
-    device; measured gaps 4.17%, 1.94% and 4.75% at this size); without
-    that product the two agree within 1% (measured 0.0%, 0.13% and 0.53%:
-    zamba2's reference has 16 small SSD dots the port computes
-    elementwise, deepseek-moe's compiled step one fewer shared-expert
-    product; PERF.md)."""
-    _, rep = _port_cell(monkeypatch, arch, kind)
+    device, V this rank's vocabulary; measured gaps 4.17%, 1.94% and 4.75%
+    at (8, 1)); without that product the two agree within 1% (measured
+    0.0%, 0.13% and 0.53%: zamba2's reference has 16 small SSD dots the
+    port computes elementwise, deepseek-moe's compiled step one fewer
+    shared-expert product; PERF.md).
+
+    At (2, 4) GSPMD splits every product of these cells over "model" and
+    so does the port, but on zamba2, whose Mamba2 layers and shared
+    attention block stay gathered over "model" (item 17b): there the
+    port's FLOPs exceed the reference's by exactly 3/4 of every product
+    but the head's (the head's 4 passes in training)."""
+    data, model = mesh_shape
+    _, rep = _port_cell(monkeypatch, arch, kind, mesh_shape)
     port = rep["roofline"]["flops"]
-    want = _ref_program_flops(arch, kind)
+    want = _ref_program_flops(arch, kind, mesh_shape)
     assert rep["roofline"]["xla_flops"] == port
-    if kind != "train":
-        assert port == pytest.approx(want, rel=1e-9)
-        return
     cfg = ARCHS["cell"]
-    extra_head = 2.0 * (B // MESH[0]) * S * cfg.d_model * cfg.vocab
-    assert port == pytest.approx(want, rel=0.05)
-    assert port - extra_head == pytest.approx(want, rel=0.01)
+    rows = B // data
+    vocab = cfg.vocab // model
+    tokens = rows * (S if kind != "decode" else 1)
+    head = 2.0 * (rows if kind != "train" else tokens) * cfg.d_model * vocab
+    if kind == "train":
+        head *= 4
+    gathered = 0.0
+    if arch in GATHERED_OVER_MODEL and model > 1:
+        gathered = 0.75 * (port - head)
+    if kind != "train":
+        assert port - gathered == pytest.approx(want, rel=1e-9)
+        return
+    extra_head = head / 4
+    assert port - gathered == pytest.approx(want, rel=0.05)
+    assert port - gathered - extra_head == pytest.approx(want, rel=0.01)
 
 
-def test_model_axis_replicates_the_dense_work(monkeypatch):
-    """At (2, 4) every model rank gathers whole weights and runs its data
-    rank's rows, so reduced llama's per-device FLOPs equal its own at
-    (2, 1): the gathered-weight design the production numbers rest on."""
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("heads", [4, 6])
+def test_model_axis_splits_the_dense_work(monkeypatch, heads, kind):
+    """At (2, 4) a device runs its data rank's rows on its "model" rank's
+    heads, d_ff and vocabulary, so its dot FLOPs are the (2, 1) run's less
+    3/4 of the products whose weights split over "model".  Reduced llama
+    with 4 heads splits every product (attention on one head a rank): a
+    quarter of the (2, 1) FLOPs.  With 6 heads its attention falls back to
+    gathered whole heads (6 % 4), and only the GLU products and the head
+    split: per layer 3 products a pass, run forward, recomputed under
+    remat (but `down`, the layer's last: torch's non-reentrant checkpoint
+    stops its recompute at the last tensor the backward needs) and twice
+    backward, and the head's 4 passes in training."""
+    monkeypatch.setitem(ARCHS, "tiny", reduce_config(
+        ARCHS["llama3.2-3b"], d_model=32 * heads, n_heads=heads))
     flops = {}
     for shape in ((2, 4), (2, 1)):
-        _, rep = _port_cell(monkeypatch, "llama3.2-3b", "train", shape)
+        monkeypatch.setitem(SHAPES, "cell", ShapeConfig("cell", kind, S, B))
+        mesh = Mesh.abstract(shape, ("data", "model"), device_type="cpu")
+        _, rep = dryrun.lower_cell("tiny", "cell", multi_pod=False,
+                                   mesh=mesh, device="cpu")
         flops[shape] = rep["roofline"]["flops"]
-    assert flops[(2, 4)] == flops[(2, 1)]
+    if heads == 4:
+        assert flops[(2, 4)] == flops[(2, 1)] / 4
+        return
+    cfg = ARCHS["tiny"]
+    rows = B // 2
+    n = rows * (S if kind != "decode" else 1)
+    mlp = 2.0 * n * cfg.d_model * cfg.d_ff * cfg.n_layers
+    head = 2.0 * (n if kind == "train" else rows) * cfg.d_model * cfg.vocab
+    split = 11 * mlp + 4 * head if kind == "train" else 3 * mlp + head
+    assert flops[(2, 4)] == flops[(2, 1)] - 0.75 * split

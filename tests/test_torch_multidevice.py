@@ -10,8 +10,9 @@ nor `repro`):
 - `moe_ffn(mesh=)` on a (2, 2) (data, model) mesh, output and aux
   (`_torch_mesh_cases.check_moe`);
 - the twin of `test_serve.py::test_serve_on_multi_device_mesh`:
-  `ServeEngine(mesh=)` on (2, 2), every request done, tokens in range and
-  equal to the one-device engine's on the same weights;
+  `ServeEngine(mesh=)` on (2, 2), every request done, tokens in range,
+  equal in bf16 to the reference's engine on a (2, 2) mesh and in float32
+  to the port's one-device engine on the same weights;
 - `zoo.prefill` + `decode_step(kv_seq_shard=True)` (and without it) on the
   2- and 4-rank host meshes against the one-device steps, float32, 1e-5;
 - every other family (hybrid Mamba2, RWKV6, MoE, MLA, M-RoPE, whisper) on
@@ -146,12 +147,31 @@ def test_moe_ffn_on_a_2_by_2_mesh(four, i):
 
 
 def test_serve_on_multi_device_mesh(four):
-    """Twin of test_serve.py::test_serve_on_multi_device_mesh."""
-    vocab = ref_reduce(REF_ARCHS[SMOKE[0]], **SMOKE[1]).vocab
+    """Twin of test_serve.py::test_serve_on_multi_device_mesh.  The (2, 2)
+    engine's tokens equal the reference's engine on a (2, 2) mesh of the
+    same weights.  On (2, 2) the dense layers run tensor-parallel and
+    their row-parallel outputs sum over "model" in bf16, as GSPMD's
+    partitioned products do; a greedy near tie of this random model then
+    goes the reference's way, where the port's one-device bf16 engine
+    goes the other (tokens 1944 and 1985 of the third request).  In
+    float32 the sum is exact to float rounding: there the (2, 2) engine's
+    tokens equal the one-device engine's."""
+    from repro.serve.engine import Request as RefRequest
+    from repro.serve.engine import ServeEngine as RefEngine
+    src, sparams = _ref_tiny(SMOKE)
+    mesh = compat_make_mesh((2, 2), ("data", "model"))
+    engine = RefEngine(src, sparams, mesh=mesh, batch_slots=2, max_len=48,
+                       prompt_len=16)
+    reqs = [RefRequest(prompt=np.asarray(p), max_new_tokens=4)
+            for p in four["inputs"]["prompts"]]
+    engine.serve(reqs)
+    want = [(r.done, list(r.out_tokens)) for r in reqs]
+    vocab = src.vocab
     for r in results(four, "serve_mesh"):
         assert all(done and len(toks) == 4 for done, toks in r["mesh"])
         assert all(0 <= t < vocab for _, toks in r["mesh"] for t in toks)
-        assert r["mesh"] == r["plain"]
+        assert r["mesh"] == want
+        assert r["mesh_f32"] == r["plain_f32"]
         # each rank holds one of the two cache rows (batch over data)
         assert r["mesh_cache"][1] == 1 and r["plain_cache"][1] == 2
 
