@@ -287,6 +287,40 @@ PIPE = {"batch": 8, "seq": 1024, "microbatches": 4}
 TP_MESH = (1, 2)
 TP_TRAIN_TOL, TP_GRAD_TOL = 1e-5, 1e-4
 TP_TIMED = 2
+# The mixers tensor-parallel on the same two ranks (ROADMAP item 17b):
+# zamba2-2.7b (Mamba2 on 40 of 80 SSD heads a rank, the shared block on 16
+# of 32 heads), rwkv6-3b (20 of 40 heads, 4480 of the channel mix's d_ff)
+# and deepseek-v2-236b at DEPTH's 4 layers (MLA on 64 of 128 heads, the
+# experts' d_ff 768 of 1536) served at full width with the kernels, each
+# rank's launches equal to `zoo.kernel_launches(cfg, mesh)` (the split
+# norms run their plain math, by design) and each kernel's variant on the
+# local heads asserted (TP_ROUTES); a float32 gate at TP_MIXER_DEPTH
+# against the one-rank logits (F32_LOGITS_TOL); float32 train gradients of
+# TP_MIXER_TRAIN at TP_MIXER_DEPTH and TP_MIXER_SHAPE against the
+# mesh-free step (TP_TRAIN_TOL, TP_GRAD_TOL). zamba2-2.7b's depth is one
+# group of its hybrid stack (6 Mamba2 layers and the shared block): at 2
+# layers it would run no group. deepseek-v2-236b's bf16 weights, 27.2 GB
+# whole and 14 GB a rank, are drawn whole and cut rank after rank, so the
+# card never holds two whole copies.
+TP_MIXERS = ("zamba2-2.7b", "rwkv6-3b", "deepseek-v2-236b")
+# new tokens a request of the mixers' TP serving (SERVED's for llama3.2-3b):
+# zamba2-2.7b's decode step moves Mamba2's whole `in_proj` over "model"
+# through host memory (about 4 s a step on two gloo ranks sharing the
+# card), so a short wave keeps the phase inside the smoke's limit
+TP_MIXER_NEW = 4
+TP_MIXER_DEPTH = {"zamba2-2.7b": 6, "rwkv6-3b": 2, "deepseek-v2-236b": 2}
+TP_MIXER_TRAIN = ("zamba2-2.7b", "rwkv6-3b")
+TP_MIXER_SHAPE = {"batch": 4, "seq": 512}
+# model -> (kernel, variant, pass) each tensor-parallel engine must run
+TP_ROUTES = {
+    "llama3.2-3b": [("flash_attention_kernel", "_mma", "prefill"),
+                    ("decode_attention_kernel", "_split", "decode")],
+    "zamba2-2.7b": [("ssd_scan_kernel", "_tiled", "prefill"),
+                    ("flash_attention_kernel", "_mma", "prefill"),
+                    ("decode_attention_kernel", "_split", "decode")],
+    "rwkv6-3b": [("rwkv6_scan_kernel", "_tiled", "prefill")],
+    "deepseek-v2-236b": [("moe_gemm_kernel", "_mma", "prefill"),
+                         ("moe_gemm_kernel", "_mma", "decode")]}
 # The dryrun phase. (a) The dry run held against the card at the train
 # phase's shape (TRAIN_ARCH, B 8 x S 1024, full remat, on a (1, 1) mesh) and
 # at a serving decode step (4 slots over a cache of MAX_LEN, cur_len
@@ -2195,17 +2229,19 @@ def mesh_serve(dev, counters, mesh, cfg) -> dict:
 
 
 def kv_decode(cfg, params, mesh, dev, kv: bool, steps: int = 4,
-              kernels=None):
+              kernels=None, sharded: bool = False):
     """`zoo.prefill` of SLOTS seeded prompts, then `steps` greedy
     `decode_step`s on `mesh` (its caches laid out by
-    `zoo.cache_shardings`), split-KV or not: (every step's logits, decode
-    ms per step)."""
+    `zoo.cache_shardings`), split-KV or not, from whole `params` (or this
+    rank's blocks, `sharded`): (every step's logits, decode ms per
+    step)."""
     import torch
     from repro_torch.models import zoo
     from repro_torch.models.module import init_from_specs
     from repro_torch.models.transformer import param_shardings
     from repro_torch.sharding.rules import local_specs, shard_tree
-    p = shard_tree(params, param_shardings(cfg, mesh))
+    p = params if sharded else shard_tree(params,
+                                          param_shardings(cfg, mesh))
     caches = init_from_specs(local_specs(
         zoo.build_cache_specs(cfg, SLOTS, MAX_LEN),
         zoo.cache_shardings(cfg, SLOTS, MAX_LEN, mesh, kv)), 0, device=dev)
@@ -2381,33 +2417,75 @@ def mesh_pipeline(dev, cfg, gate_cfg) -> dict:
                                                  "microbatches")}, **out}
 
 
-def tp_serve_child(dev, full, tp) -> dict:
+def in_turn(make):
+    """`make()` on each rank of the process group in turn, the others
+    waiting, so the card holds one rank's transient copies at a time."""
+    import torch
+    import torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = make()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def tp_local_heads(cfg, mixer) -> int:
+    """The heads a rank's stacked mixer blocks hold: `wq`'s columns (GQA,
+    MLA), Mamba2's `out_proj` rows, RWKV6's `Wr` columns, over the width
+    of a head."""
+    if cfg.mixer == "mamba2":
+        return mixer["out_proj"].shape[1] // cfg.ssm["headdim"]
+    if cfg.mixer == "rwkv6":
+        return mixer["tm"]["Wr"].shape[2] // cfg.head_dim
+    if cfg.mixer == "mla":
+        return mixer["wq"].shape[2] // (cfg.mla["qk_nope"] +
+                                         cfg.mla["qk_rope"])
+    return mixer["wq"].shape[2] // cfg.head_dim
+
+
+def tp_serve_child(dev, full, tp, new: int, timed_steps: int = 4) -> dict:
     """`full` through `ServeEngine(mesh=tp)` with the kernels on this
-    rank's heads, d_ff and vocabulary: each kernel's launches in `serve`
-    (counts at 0 just before) equal to `zoo.kernel_launches`' count, the
-    flash and decode attention variants `_mma` and `_split` on the local
-    heads and the KV-head range of the cache, a timed wave, the tokens."""
+    rank's heads, d_ff and vocabulary, N_REQ requests of `new` tokens:
+    each kernel's launches in `serve` (counts at 0 just before) equal to
+    `zoo.kernel_launches(full, tp)`'s count, each kernel variant of
+    TP_ROUTES on the local heads (the scans' `_tiled`, flash and decode
+    attention's `_mma` and `_split` on the local heads and the KV-head
+    range of the cache), a timed prefill and `timed_steps` decode steps
+    after a warm-up wave (with `timed_steps` 0, none: the profiled
+    passes' walls stand for them), the tokens."""
     import torch
     from repro_torch.kernels.decode_attention import decode_attention_fwd
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.moe_gemm import moe_gemm
     from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import transformer as tfm
     from repro_torch.models import zoo
+    from repro_torch.models.module import tree_leaves
     from repro_torch.serve.engine import Request, ServeEngine
     counters = {"rmsnorm": rmsnorm_fwd, "flash_attention": flash_attention_fwd,
-                "decode_attention": decode_attention_fwd}
-    new = SERVED[full.name][0]
-    eng = ServeEngine(full, seeded_params(full, dev), mesh=tp,
-                      batch_slots=SLOTS, prompt_len=PROMPT, max_len=MAX_LEN,
-                      device=dev)
-    torch.cuda.empty_cache()
+                "decode_attention": decode_attention_fwd,
+                "ssd_scan": ssd_scan, "rwkv6_scan": rwkv6_scan,
+                "moe_gemm": moe_gemm}
+    eng = in_turn(lambda: ServeEngine(
+        full, seeded_params(full, dev), mesh=tp, batch_slots=SLOTS,
+        prompt_len=PROMPT, max_len=MAX_LEN, device=dev))
     assert eng.kernels
+    sh = tfm.param_shardings(full, tp)
+    split = sorted(tfm.split_blocks(full, tfm.layer_shardings(sh["layers"])))
+    local_heads = tp_local_heads(full, eng.params["layers"]["mixer"])
     prompts = np.random.default_rng(5).integers(1, full.vocab,
                                                 size=(N_REQ, PROMPT))
 
-    def requests():
-        return [Request(prompt=p, max_new_tokens=new) for p in prompts]
+    def requests(n=new):
+        return [Request(prompt=p, max_new_tokens=n) for p in prompts]
 
-    eng.run(requests()[:SLOTS])                # warm-up
+    if timed_steps:
+        eng.run(requests(2)[:SLOTS])           # warm-up
     for fn in counters.values():
         fn.launches = 0
     sync(dev)
@@ -2416,59 +2494,71 @@ def tp_serve_child(dev, full, tp) -> dict:
     sync(dev)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    per_prefill, per_step = zoo.kernel_launches(full)
+    per_prefill, per_step = zoo.kernel_launches(full, tp)
     expected = {k: WAVES * per_prefill.get(k, 0)
                 + WAVES * (new - 1) * per_step.get(k, 0) for k in counters}
     assert launches == expected, (launches, expected)
     assert all(r.done and len(r.out_tokens) == new and
                all(0 <= t < full.vocab for t in r.out_tokens) for r in reqs)
-    sync(dev)
-    t0 = time.perf_counter()
-    tok = eng.prefill_step(requests()[:SLOTS])
-    tok.tolist()
-    t1 = time.perf_counter()
-    for _ in range(4):
-        tok = eng.decode_once(tok)
+    if timed_steps:
+        sync(dev)
+        t0 = time.perf_counter()
+        tok = eng.prefill_step(requests()[:SLOTS])
         tok.tolist()
-    t2 = time.perf_counter()
+        t1 = time.perf_counter()
+        for _ in range(timed_steps):
+            tok = eng.decode_once(tok)
+            tok.tolist()
+        t2 = time.perf_counter()
+        prefill_ms = (t1 - t0) * 1e3
+        decode_ms = (t2 - t1) * 1e3 / timed_steps
     pre, pre_k = step_profile(
         lambda: eng.prefill_step(requests()[:SLOTS]).tolist())
-    assert_variant(pre_k, "flash_attention_kernel", "_mma")
     tok = eng.decode_once(eng.prefill_step(requests()[:SLOTS]))
     step, step_k = step_profile(lambda: eng.decode_once(tok).tolist())
-    assert_variant(step_k, "decode_attention_kernel", "_split")
+    if not timed_steps:
+        prefill_ms, decode_ms = pre["wall_ms"], step["wall_ms"]
+    if "mixer" in split:    # each scan and attention kernel ran on these
+        heads = full.d_model // full.head_dim if full.mixer == "rwkv6" \
+            else full.n_heads
+        if full.mixer == "mamba2":
+            heads = full.ssm.get("expand", 2) * full.d_model // \
+                full.ssm["headdim"]
+        assert local_heads * tp.size("model") == heads, (local_heads, heads)
+    variants = {}
+    for kernel, suffix, where in TP_ROUTES[full.name]:
+        assert_variant(pre_k if where == "prefill" else step_k, kernel,
+                       suffix)
+        variants[f"{kernel} ({where})"] = suffix
     out = {"arch": full.name, "n_layers": full.n_layers, "mesh": list(TP_MESH),
-           "requests": N_REQ, "new_tokens": new, "wall_s": wall,
-           "tokens_per_s": N_REQ * new / wall, "launches": launches,
-           "expected_launches": expected,
-           "variants": {"flash_attention": "_mma",
-                        "decode_attention": "_split"},
-           "prefill_ms": (t1 - t0) * 1e3, "decode_ms_per_step":
-           (t2 - t1) * 1e3 / 4, "prefill_profile": pre,
+           "split": split, "local_heads": local_heads,
+           "requests": N_REQ, "new_tokens": new,
+           "wall_s": wall, "tokens_per_s": N_REQ * new / wall,
+           "launches": launches, "expected_launches": expected,
+           "variants": variants,
+           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+           "prefill_profile": pre,
            "decode_step_profile": step,
+           "local_params": sum(x.numel() for x in
+                               tree_leaves(eng.params)),
            "tokens": [r.out_tokens for r in reqs]}
     del eng
     torch.cuda.empty_cache()
     return out
 
 
-def tp_train_child(dev, full, gate, tp) -> dict:
+def tp_grad_gate(dev, gate, tp, batch: int, seq: int) -> dict:
     """A float32 train loss and its gradients of `gate` on `tp` (this
-    rank's blocks) against the mesh-free step on the same rank, the
-    loss within TP_TRAIN_TOL and every gradient block within TP_GRAD_TOL
-    of its leaf's largest magnitude; then `make_train_step(full, tp)` in
-    bf16 at full width and depth at PIPE's batch and seq, timed."""
+    rank's blocks) against the mesh-free step on the same rank, at
+    `batch` x `seq`: the loss within TP_TRAIN_TOL and every gradient
+    block within TP_GRAD_TOL of its leaf's largest magnitude."""
     import torch
     from repro_torch.models import zoo
     from repro_torch.models.module import tree_leaves, tree_unflatten
     from repro_torch.models.transformer import param_shardings
     from repro_torch.sharding.rules import shard_tree
-    from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.train_step import (TrainStepConfig,
-                                              init_train_state,
-                                              make_train_step)
     params = seeded_params(gate, dev, 4)
-    data = token_batch(gate, 0, PIPE["batch"], PIPE["seq"], dev)
+    data = token_batch(gate, 0, batch, seq, dev)
     sh = param_shardings(gate, tp)
 
     def loss_grads(p, mesh):
@@ -2484,10 +2574,59 @@ def tp_train_child(dev, full, gate, tp) -> dict:
     for g, w, s in zip(grads, want, tree_leaves(sh)):
         worst = max(worst, float((g - s.shard(w)).abs().max()) /
                     max(float(w.abs().max()), 1e-30))
-    assert loss_rel <= TP_TRAIN_TOL, (loss, want_loss)
-    assert worst <= TP_GRAD_TOL, worst
+    assert loss_rel <= TP_TRAIN_TOL, (gate.name, loss, want_loss)
+    assert worst <= TP_GRAD_TOL, (gate.name, worst)
     del params, grads, want
     torch.cuda.empty_cache()
+    return {"n_layers": gate.n_layers, "batch": batch, "seq": seq,
+            "loss": loss, "loss_rel_diff": loss_rel,
+            "grad_rel_diff": worst, "tol": [TP_TRAIN_TOL, TP_GRAD_TOL]}
+
+
+def tp_mixer_child(dev, arch: str, cfg, tp, use: bool) -> dict:
+    """One mixer model of TP_MIXERS on the two ranks: its serving with
+    the kernels (`tp_serve_child`, on the card), its float32 gate's
+    logits at TP_MIXER_DEPTH (the ranks' blocks cut in turn), and for
+    TP_MIXER_TRAIN its float32 gradients (`tp_grad_gate`)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.transformer import param_shardings
+    from repro_torch.sharding.rules import shard_tree
+    t0 = time.perf_counter()
+    out = {}
+    if use:
+        out["serve"] = tp_serve_child(dev, cfg, tp, TP_MIXER_NEW, 0)
+    out["serve_s"] = time.perf_counter() - t0
+    gate = dataclasses.replace(cut(cfg, TP_MIXER_DEPTH[arch]),
+                               dtype=torch.float32)
+    local = in_turn(lambda: shard_tree(seeded_params(gate, dev, 1),
+                                       param_shardings(gate, tp)))
+    logits, _ = kv_decode(gate, local, tp, dev, False, kernels=None,
+                          sharded=True)
+    out["gate"] = [x.cpu().numpy() for x in logits]
+    del local, logits
+    if arch in TP_MIXER_TRAIN:
+        out["train"] = tp_grad_gate(dev, gate, tp, **TP_MIXER_SHAPE)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def tp_train_child(dev, full, gate, tp) -> dict:
+    """`tp_grad_gate` of `gate` at PIPE's batch and seq; then
+    `make_train_step(full, tp)` in bf16 at full width and depth at PIPE's
+    batch and seq, timed."""
+    import torch
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.transformer import param_shardings
+    from repro_torch.sharding.rules import shard_tree
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainStepConfig,
+                                              init_train_state,
+                                              make_train_step)
+    f32 = tp_grad_gate(dev, gate, tp, PIPE["batch"], PIPE["seq"])
     p = shard_tree(seeded_params(full, dev, 4), param_shardings(full, tp))
     torch.cuda.empty_cache()
     scfg = TrainStepConfig(remat=True, opt=AdamWConfig())
@@ -2505,10 +2644,7 @@ def tp_train_child(dev, full, gate, tp) -> dict:
         sync(dev)
         ms.append((time.perf_counter() - t0) * 1e3)
     assert np.isfinite(float(m["loss"])), m
-    out = {"float32": {"n_layers": gate.n_layers, "batch": PIPE["batch"],
-                       "seq": PIPE["seq"], "loss": loss,
-                       "loss_rel_diff": loss_rel, "grad_rel_diff": worst,
-                       "tol": [TP_TRAIN_TOL, TP_GRAD_TOL]},
+    out = {"float32": f32,
            "bf16": {"n_layers": full.n_layers, "batch": PIPE["batch"],
                     "seq": PIPE["seq"], "step_ms": ms,
                     "loss": float(m["loss"]),
@@ -2522,7 +2658,8 @@ def tp_train_child(dev, full, gate, tp) -> dict:
 
 
 def two_rank_child(rank: int, world: int, d: str, device_type: str,
-                   full, moe_cfg, gate_layers: int, shapes: dict) -> None:
+                   full, moe_cfg, gate_layers: int, shapes: dict,
+                   mixers: dict) -> None:
     """One of two ranks sharing one device through gloo: a probe of the
     collectives on that device's tensors, then split-KV decode on the
     (2, 1) host mesh and a 2-stage pipeline, each in float32 at
@@ -2592,11 +2729,14 @@ def two_rank_child(rank: int, world: int, d: str, device_type: str,
     # tensor-parallel dense layers: heads, d_ff and vocabulary over "model"
     if use:
         torch.cuda.empty_cache()
-        res["tp_serve"] = tp_serve_child(dev, full, tp)
+        res["tp_serve"] = tp_serve_child(dev, full, tp, SERVED[full.name][0])
     logits, _ = kv_decode(gate, seeded_params(gate, dev, 1), tp, dev,
                           False, kernels=None)
     res["tp_gate"] = [x.cpu().numpy() for x in logits]
     res["tp_train"] = tp_train_child(dev, full, gate, tp)
+    # the mixers tensor-parallel: Mamba2, RWKV6 and MLA on local heads
+    res["tp_mixers"] = {a: tp_mixer_child(dev, a, cfg, tp, use)
+                        for a, cfg in mixers.items()}
     if device_type == "cuda":
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     dist.destroy_process_group()
@@ -2604,7 +2744,8 @@ def two_rank_child(rank: int, world: int, d: str, device_type: str,
         pickle.dump(res, f)
 
 
-def two_ranks(dev, full, moe_cfg, gate_layers: int, one: dict) -> dict:
+def two_ranks(dev, full, moe_cfg, gate_layers: int, one: dict,
+              mixers: dict) -> dict:
     """Two ranks sharing the one device: two processes through gloo
     (NCCL refuses two ranks on one device; gloo stages CUDA tensors
     through host memory).  Each rank's split-KV decode and 2-stage
@@ -2618,9 +2759,11 @@ def two_ranks(dev, full, moe_cfg, gate_layers: int, one: dict) -> dict:
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         shapes = {"PIPE": PIPE, "SLOTS": SLOTS, "PROMPT": PROMPT,
-                  "MAX_LEN": MAX_LEN}
+                  "MAX_LEN": MAX_LEN, "TP_MIXER_DEPTH": TP_MIXER_DEPTH,
+                  "TP_MIXER_SHAPE": TP_MIXER_SHAPE}
         mp.start_processes(two_rank_child, args=(
-            2, d, dev.type, full, moe_cfg, gate_layers, shapes), nprocs=2,
+            2, d, dev.type, full, moe_cfg, gate_layers, shapes, mixers),
+            nprocs=2,
             join=True,
             start_method="spawn")
         wall = time.perf_counter() - t0
@@ -2663,7 +2806,25 @@ def two_ranks(dev, full, moe_cfg, gate_layers: int, one: dict) -> dict:
     assert max(tp_gate) <= F32_LOGITS_TOL, tp_gate
     tp = {"mesh": list(TP_MESH), "gate_max_abs_diff": max(tp_gate),
           "gate_tol": F32_LOGITS_TOL,
-          "train": [r["tp_train"] for r in ranks]}
+          "train": [r["tp_train"] for r in ranks], "mixers": {}}
+    for arch in mixers:
+        got = [r["tp_mixers"][arch] for r in ranks]
+        diffs = [max(float(np.abs(a - b.cpu().numpy()).max())
+                     for a, b in zip(g["gate"], one["tp_mixers"][arch]))
+                 for g in got]
+        assert max(diffs) <= F32_LOGITS_TOL, (arch, diffs)
+        line = {"wall_s": [g["wall_s"] for g in got],
+                "serve_s": [g["serve_s"] for g in got],
+                "gate_n_layers": TP_MIXER_DEPTH[arch],
+                "gate_max_abs_diff": max(diffs),
+                "gate_logits_max_abs": float(np.abs(got[0]["gate"][0]).max())}
+        if arch in TP_MIXER_TRAIN:
+            line["train_float32"] = [g["train"] for g in got]
+        if dev.type == "cuda":
+            assert got[0]["serve"]["tokens"] == got[1]["serve"]["tokens"]
+            line["serve"] = [{k: v for k, v in g["serve"].items()
+                              if k != "tokens"} for g in got]
+        tp["mixers"][arch] = line
     if dev.type == "cuda":
         serve = [r["tp_serve"] for r in ranks]
         # both ranks sample from the same whole logits
@@ -2687,13 +2848,15 @@ def two_ranks(dev, full, moe_cfg, gate_layers: int, one: dict) -> dict:
     return out
 
 
-def mesh_phase(dev, counters, *, serve_cfg, moe_cfg,
+def mesh_phase(dev, counters, *, serve_cfg, moe_cfg, mixers: dict,
                gate_layers: int = 2) -> dict:
     """The multi-device layer on one device: a one-rank process group
     (NCCL on the card) under `make_host_mesh()`; the serving engine, the
     split-KV decode, the expert-parallel MoE and the pipeline at one
     stage on it; the production mesh's refusal; then two ranks on the one
-    device (`two_ranks`), held against this rank's results."""
+    device (`two_ranks`), held against this rank's results; `mixers`:
+    {name: config} of TP_MIXERS (their float32 gates here at
+    TP_MIXER_DEPTH)."""
     import dataclasses
 
     import torch
@@ -2732,6 +2895,15 @@ def mesh_phase(dev, counters, *, serve_cfg, moe_cfg,
                               True, kernels=False)
             tp_gate, _ = kv_decode(gate, seeded_params(gate, dev, 1), mesh,
                                    dev, False, kernels=None)
+            mixer_gates = {}
+            for arch, cfg in mixers.items():
+                g = dataclasses.replace(cut(cfg, TP_MIXER_DEPTH[arch]),
+                                        dtype=torch.float32)
+                mixer_gates[arch], _ = kv_decode(
+                    g, seeded_params(g, dev, 1), mesh, dev, False,
+                    kernels=None)
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
             pipe1 = Mesh((1, 1), ("pipe", "data"), device_type=dev.type)
             params = seeded_params(gate, dev, 4)
             loss, grads, _ = pipeline_run(
@@ -2739,11 +2911,16 @@ def mesh_phase(dev, counters, *, serve_cfg, moe_cfg,
                 seq=PIPE["seq"], microbatches=PIPE["microbatches"])
             assert len(grads) == len(tree_leaves(params))
             one = {"kv": kv, "pipe": (loss, grads), "moe": moe_out,
-                   "tp_gate": tp_gate, "tokens": out["serve"].pop("tokens")}
+                   "tp_gate": tp_gate, "tp_mixers": mixer_gates,
+                   "tokens": out["serve"].pop("tokens")}
+            del params, grads
         finally:
             dist.destroy_process_group()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     out["one_rank_wall_s"] = time.perf_counter() - t0
-    out["two_ranks"] = two_ranks(dev, serve_cfg, moe_cfg, gate_layers, one)
+    out["two_ranks"] = two_ranks(dev, serve_cfg, moe_cfg, gate_layers, one,
+                                 mixers)
     out["wall_s"] = time.perf_counter() - t0
     return out
 
@@ -3438,7 +3615,9 @@ def main() -> int:
     # ---- the multi-device layer on the card ------------------------------
     from repro_torch.configs import ARCHS
     meshed = mesh_phase(dev, counters, serve_cfg=ARCHS[MESH_ARCH],
-                        moe_cfg=ARCHS[MESH_MOE])
+                        moe_cfg=ARCHS[MESH_MOE],
+                        mixers={a: cut(ARCHS[a], DEPTH.get(a))
+                                for a in TP_MIXERS})
     emit(meshed)
 
     t = times[TIMED_SHAPES[0]]
@@ -3493,9 +3672,12 @@ def main() -> int:
         by_path["dryrun"] = dried["launches"][name]
         if name == "moe_gemm":
             by_path[f"mesh moe_ffn {MESH_MOE}"] = meshed["moe"]["launches"]
-        tp_serve = meshed["two_ranks"]["tensor_parallel"]["serve"]
+        tp_two = meshed["two_ranks"]["tensor_parallel"]
         by_path[f"mesh tensor-parallel {MESH_ARCH} (rank 0 of 2)"] = \
-            tp_serve[0]["launches"].get(name, 0)
+            tp_two["serve"][0]["launches"].get(name, 0)
+        for a, line in tp_two["mixers"].items():
+            by_path[f"mesh tensor-parallel {a} (rank 0 of 2)"] = \
+                line["serve"][0]["launches"].get(name, 0)
         row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",

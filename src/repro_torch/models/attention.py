@@ -24,6 +24,12 @@ the output sums over "model" (`reduce_from`).  The caches keep every KV
 head (`zoo.cache_shardings`); a rank fills and reads only its range, a
 view, so the attention kernels take it as they take the whole cache.
 
+`mla_attention(tp=)` runs MLA on this rank's heads the same way: `wq`,
+`wk_b` and `wv_b` hold their columns and `wo` their rows, while `wkv_a`
+and `kv_norm` are whole, so every rank computes the same latent and rope
+key and fills the same latent cache; the absorbed decode runs on the
+local heads.
+
 `kernels=True` runs GQA's attention through the flash and decode attention
 kernels and MLA's `kv_norm` through the rmsnorm kernel.  MLA's prefill
 attention (q and k of D = qk_nope + qk_rope, v of D = v_dim) and its
@@ -217,13 +223,18 @@ def mla_specs(d_model: int, n_heads: int, qk_nope: int, qk_rope: int,
 
 def mla_attention(params, x, positions, *, n_heads, qk_nope, qk_rope, v_dim,
                   kv_lora, rope_theta=1e4, cache=None, cur_len=None,
-                  block_q=512, block_kv=1024, kernels: bool = False):
+                  block_q=512, block_kv=1024, tp=None,
+                  kernels: bool = False):
     """Returns (out, cache); cache = dict(ckv: (B,T,kv_lora),
     kr: (B,T,qk_rope)), written in place; cur_len: Python int (decode).
+    `tp`: the heads split over its "model" ranks (module docstring).
 
     `kernels` runs only `kv_norm` through the rmsnorm kernel (see the
     module's docstring)."""
     B, S, D = x.shape
+    if tp is not None:
+        x = copy_to(x, tp, "model")
+        n_heads //= tp.size("model")
     q = (x @ params["wq"]).reshape(B, S, n_heads, qk_nope + qk_rope)
     qn, qr = q[..., :qk_nope], q[..., qk_nope:]
     qr = apply_rope(qr, positions, rope_theta)
@@ -254,7 +265,7 @@ def mla_attention(params, x, positions, *, n_heads, qk_nope, qk_rope, v_dim,
         ctx = torch.einsum("bht,btk->bhk", p, ckv_c)             # (B,H,ckv)
         heads = torch.einsum("bhk,khd->bhd", ctx, wv_b)
         out = heads.reshape(B, 1, n_heads * v_dim).to(x.dtype)
-        return out @ params["wo"], cache
+        return _mla_out(out, params["wo"], tp), cache
 
     # prefill: decompress per-head keys/values, blocked attention (plain:
     # k and v differ in D)
@@ -268,7 +279,12 @@ def mla_attention(params, x, positions, *, n_heads, qk_nope, qk_rope, v_dim,
     if cache is not None:  # prefill fills the latent cache
         cache["ckv"][:, :S] = ckv
         cache["kr"][:, :S] = kr
-    return out.reshape(B, S, -1) @ params["wo"], cache
+    return _mla_out(out.reshape(B, S, -1), params["wo"], tp), cache
+
+
+def _mla_out(heads, wo, tp):
+    y = heads @ wo
+    return y if tp is None else reduce_from(y, tp, "model")
 
 
 def mla_cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16):

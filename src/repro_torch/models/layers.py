@@ -23,7 +23,9 @@ the data-parallel axes, each expert's d_ff over `model`, the output summed
 over `model` in bf16); `moe_local` is the region's body on one rank's
 block, which the decoder calls with its own layout.  `glu_mlp` and
 `gelu_mlp` take `tp`, a mesh whose "model" ranks split d_ff (Megatron's
-column- then row-parallel pair, one reduction at the end).
+column- then row-parallel pair, one reduction at the end);
+`rmsnorm_split` is RMSNorm over a row whose channels split over "model"
+(Mamba2's gated norm and RWKV's `ln_out` on local heads).
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch.models.module import ParamSpec
 from repro_torch.sharding.collectives import (all_reduce, copy_to,
-                                              mean_over, reduce_from, rows)
+                                              mean_over, reduce_from, rows,
+                                              sum_over)
 from repro_torch.sharding.rules import all_gather, batch_axes
 
 F32 = torch.float32
@@ -54,6 +57,18 @@ def rmsnorm(x, scale, eps: float = 1e-5, *, kernels: bool = False):
         return rmsnorm_fwd(x, scale, eps=eps)
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def rmsnorm_split(x, scale, tp, eps: float = 1e-5):
+    """`rmsnorm` of rows split over `tp`'s "model" ranks: `x` holds this
+    rank's channels of each row and `scale` their slice.  Each rank's
+    float32 sum of squares sums over "model" (`sum_over`), so every rank
+    divides by the whole row's mean; plain math on every device (the
+    rmsnorm kernel normalises whole rows)."""
+    xf = x.float()
+    ss = sum_over(torch.sum(xf * xf, dim=-1, keepdim=True), tp, "model")
+    var = ss / (x.shape[-1] * tp.size("model"))
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 

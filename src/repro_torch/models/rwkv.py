@@ -12,6 +12,15 @@ factored exp blow-up), and carries S across chunks with a loop (the
 reference's `lax.scan`).  `rwkv6_time_mix(..., kernels=True)` runs the
 prefill scan through the CUDA kernel (`repro_torch.kernels.rwkv6_scan`) and
 `ln_out` through the rmsnorm kernel; decode stays plain torch.
+
+`tp` (a mesh) runs either block tensor-parallel over its "model" ranks.
+The time mix on this rank's heads: x enters through `copy_to` before the
+token shift, `Wr`, `Wk`, `Wv`, `Wg` and `w_lora_b` hold the heads'
+columns and `Wo` their rows, `u`, `w_bias` and `ln_out` are sliced to
+them, `ln_out` runs over the split row (`layers.rmsnorm_split`, plain
+math) and the output sums over "model".  The channel mix on this rank's d_ff: `copy_to`
+on the k path alone (`x @ Wr`, whole, is the same work on every rank),
+`Wk`'s columns and `Wv`'s rows, one `reduce_from` before the gate.
 """
 from __future__ import annotations
 
@@ -19,8 +28,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_scan import LOGW_MIN, rwkv6_scan
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import rmsnorm, rmsnorm_split
 from repro_torch.models.module import ParamSpec
+from repro_torch.sharding.collectives import copy_to, reduce_from, rows
 
 F32 = torch.float32
 
@@ -150,10 +160,17 @@ def _token_shift(x, last):
 
 
 def rwkv6_time_mix(p, x, *, head_dim: int = 64, chunk: int = 32,
-                   state=None, last_x=None, kernels: bool = False):
-    """Returns (y, (state, last x)); state/last_x given => carried in."""
+                   state=None, last_x=None, tp=None, kernels: bool = False):
+    """Returns (y, (state, last x)); state/last_x given => carried in.
+    `tp`: this rank's heads of its "model" ranks (module docstring); the
+    state then holds those heads."""
     B, S, D = x.shape
-    H = D // head_dim
+    H = p["Wr"].shape[1] // head_dim
+    u, w_bias, ln_out = p["u"], p["w_bias"], p["ln_out"]
+    if tp is not None:
+        x = copy_to(x, tp, "model")
+        u, w_bias, ln_out = (rows(v, tp, "model") for v in (u, w_bias,
+                                                            ln_out))
     last = last_x if last_x is not None else x.new_zeros((B, D))
     xs = _token_shift(x, last)
 
@@ -165,31 +182,40 @@ def rwkv6_time_mix(p, x, *, head_dim: int = 64, chunk: int = 32,
     v = (mix(p["mu_v"]) @ p["Wv"]).reshape(B, S, H, head_dim)
     g = F.silu(mix(p["mu_g"]) @ p["Wg"])
     w_raw = (mix(p["mu_w"]).float() @ p["w_lora_a"].float()
-             @ p["w_lora_b"].float()) + p["w_bias"]
+             @ p["w_lora_b"].float()) + w_bias
     logw = -F.softplus(-w_raw) - 0.5                      # in (-inf, -0.5)
     logw = logw.reshape(B, S, H, head_dim)
 
     if S > 1:  # prefill (chunked parallel form)
         if kernels:
-            o, s_final = rwkv6_scan(r, k, v, logw, p["u"], chunk=chunk,
+            o, s_final = rwkv6_scan(r, k, v, logw, u, chunk=chunk,
                                     initial_state=state)
         else:
-            o, s_final = rwkv6_chunked(r, k, v, logw, p["u"], chunk=chunk,
+            o, s_final = rwkv6_chunked(r, k, v, logw, u, chunk=chunk,
                                        initial_state=state)
     else:      # decode (recurrent form)
         s0 = state if state is not None else x.new_zeros(
             (B, H, head_dim, head_dim), dtype=F32)
-        o, s_final = rwkv6_decode_step(s0, r, k, v, logw, p["u"])
+        o, s_final = rwkv6_decode_step(s0, r, k, v, logw, u)
 
-    o = rmsnorm(o.reshape(B, S, D), p["ln_out"], kernels=kernels) * g
-    return o @ p["Wo"], (s_final, x[:, -1, :])
+    o = o.reshape(B, S, H * head_dim)
+    if tp is None:
+        o = rmsnorm(o, ln_out, kernels=kernels) * g
+        return o @ p["Wo"], (s_final, x[:, -1, :])
+    o = rmsnorm_split(o, ln_out, tp) * g
+    return reduce_from(o @ p["Wo"], tp, "model"), (s_final, x[:, -1, :])
 
 
-def rwkv6_channel_mix(p, x, last_x=None):
+def rwkv6_channel_mix(p, x, last_x=None, tp=None):
+    """Returns (y, last x); `tp`: `Wk`'s columns and `Wv`'s rows are this
+    rank's d_ff of its "model" ranks (module docstring)."""
     B, S, D = x.shape
     last = last_x if last_x is not None else x.new_zeros((B, D))
-    xs = _token_shift(x, last)
-    xk = x + (xs - x) * p["mu_k"]
+    xk_in = x if tp is None else copy_to(x, tp, "model")
+    xs = _token_shift(xk_in, last)
+    xk = xk_in + (xs - xk_in) * p["mu_k"]
     k = torch.square(torch.relu(xk @ p["Wk"]))
     r = torch.sigmoid(x @ p["Wr"])
-    return r * (k @ p["Wv"]), x[:, -1, :]
+    kv = k @ p["Wv"]
+    return r * (kv if tp is None else reduce_from(kv, tp, "model")), \
+        x[:, -1, :]

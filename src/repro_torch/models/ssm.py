@@ -11,6 +11,17 @@ matrix (segment-sum) and carries inter-chunk states with a loop over chunks
 (the reference's `lax.scan`).  `mamba2_block(..., kernels=True)` runs the
 prefill scan through the CUDA kernel (`repro_torch.kernels.ssd_scan`) and
 the gated norm through the rmsnorm kernel; decode stays plain torch.
+
+`mamba2_block(tp=)` runs the block on this rank's SSD heads of `tp`'s
+"model" ranks.  `in_proj` and `conv_w` come whole: their
+stored blocks split the fused columns [z | x | B | C | dt] (and the conv's
+[x | B | C]) where no head boundary falls, so the rank takes the z, x and
+dt of its heads and B and C whole (`local_spans`, every rank computing the
+same B and C); `out_proj` holds this rank's rows (the layout's block is
+head-aligned), the gated norm runs over the split row (`rmsnorm_split`,
+plain math), x enters through `copy_to` and the output sums over "model"
+(`reduce_from`).  The cache keeps every head and conv channel; a rank
+reads and writes its own (`local_cache`, `store_local`).
 """
 from __future__ import annotations
 
@@ -18,8 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import rmsnorm, rmsnorm_split
 from repro_torch.models.module import ParamSpec
+from repro_torch.sharding.collectives import copy_to, reduce_from, rows
 
 F32 = torch.float32
 
@@ -138,20 +150,81 @@ def _split_inproj(z_all, d_inner, d_state, H):
     return z, xbc, dt
 
 
+def local_spans(d_inner: int, d_state: int, headdim: int, tp):
+    """(the spans of `in_proj`'s columns, the spans of the conv channels)
+    this rank's heads of `tp`'s "model" ranks use: z, x, B, C, dt of
+    [z | x | B | C | dt], and x, B, C of [x | B | C].
+
+        >>> from repro_torch.sharding.rules import Mesh
+        >>> local_spans(256, 16, 32, Mesh.abstract((1, 4), ("d", "model")))
+        ([(0, 64), (256, 320), (512, 544), (544, 546)], [(0, 64), (256, 288)])
+    """
+    n = d_inner // headdim // tp.size("model")
+    h0 = tp.index("model") * n
+    c0, c1 = h0 * headdim, (h0 + n) * headdim
+    bc = 2 * d_inner + 2 * d_state
+    return ([(c0, c1), (d_inner + c0, d_inner + c1), (2 * d_inner, bc),
+             (bc + h0, bc + h0 + n)],
+            [(c0, c1), (d_inner, d_inner + 2 * d_state)])
+
+
+def _cols(w, spans):
+    """The columns `spans` of `w`'s last axis, laid side by side."""
+    return torch.cat([w[..., a:b] for a, b in spans], dim=-1)
+
+
+def local_cache(cache, d_state: int, headdim: int, tp):
+    """(views of this rank's heads of a layer's float32 state and of its
+    conv channels, the state and conv carry as `mamba2_block` takes
+    them: contiguous copies under `tp`, the cache's tensors without)."""
+    if tp is None:
+        return (cache["state"], [cache["conv"]]), (cache["state"],
+                                                   cache["conv"])
+    d_inner = cache["conv"].shape[-1] - 2 * d_state
+    views = (rows(cache["state"], tp, "model", 1),
+             [cache["conv"][..., a:b] for a, b in
+              local_spans(d_inner, d_state, headdim, tp)[1]])
+    return views, (views[0].contiguous(), torch.cat(views[1], dim=-1))
+
+
+def store_local(views, state, conv) -> None:
+    """Write a block's new state and conv carry into `local_cache`'s
+    views, in place."""
+    views[0].copy_(state)
+    at = 0
+    for v in views[1]:
+        v.copy_(conv[..., at:at + v.shape[-1]])
+        at += v.shape[-1]
+
+
 def mamba2_block(params, x, *, d_state: int = 64, headdim: int = 64,
-                 chunk: int = 64, state=None, conv_state=None,
+                 chunk: int = 64, state=None, conv_state=None, tp=None,
                  kernels: bool = False):
     """x: (B,S,D). state/conv_state given => carried in (decode, or a
     prefill that starts from the cache's state, as the reference's does).
+    `tp`: this rank's heads of its "model" ranks (module docstring);
+    state and conv_state then hold this rank's heads and conv channels.
 
     Returns (y, (ssm_state, conv_state))."""
     B, S, D = x.shape
-    d_inner = params["out_proj"].shape[0]
+    d_inner = params["norm"].shape[0]
     H = d_inner // headdim
+    in_proj, conv_w, conv_b = (params[k] for k in ("in_proj", "conv_w",
+                                                   "conv_b"))
+    A_log, Dskip, dt_bias, norm = (params[k] for k in ("A_log", "D",
+                                                       "dt_bias", "norm"))
+    if tp is not None:
+        x = copy_to(x, tp, "model")
+        proj, conv = local_spans(d_inner, d_state, headdim, tp)
+        in_proj, conv_w, conv_b = (_cols(in_proj, proj), _cols(conv_w, conv),
+                                   _cols(conv_b, conv))
+        A_log, Dskip, dt_bias, norm = (rows(p, tp, "model") for p in (
+            A_log, Dskip, dt_bias, norm))
+        H, d_inner = A_log.shape[0], norm.shape[0]
 
-    z_all = x @ params["in_proj"]
+    z_all = x @ in_proj
     z, xbc, dt_raw = _split_inproj(z_all, d_inner, d_state, H)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])           # (B,S,H)
+    dt = F.softplus(dt_raw.float() + dt_bias)                     # (B,S,H)
 
     # causal conv over [x, B, C] streams
     if conv_state is None:
@@ -160,13 +233,13 @@ def mamba2_block(params, x, *, d_state: int = 64, headdim: int = 64,
         pad = conv_state.to(xbc.dtype)
     xbc_pad = torch.cat([pad, xbc], dim=1)
     new_conv_state = xbc_pad[:, -(CONV_W - 1):, :]
-    conv = sum(xbc_pad[:, i:i + S, :] * params["conv_w"][i][None, None, :]
-               for i in range(CONV_W)) + params["conv_b"]
+    conv = sum(xbc_pad[:, i:i + S, :] * conv_w[i][None, None, :]
+               for i in range(CONV_W)) + conv_b
     conv = F.silu(conv)
 
     xs, Bm, Cm = torch.split(conv, [d_inner, d_state, d_state], dim=-1)
     xh = xs.reshape(B, S, H, headdim)
-    A = -torch.exp(params["A_log"])                                # (H,) < 0
+    A = -torch.exp(A_log)                                          # (H,) < 0
 
     if S > 1:  # prefill (chunked parallel form)
         if kernels:
@@ -179,10 +252,14 @@ def mamba2_block(params, x, *, d_state: int = 64, headdim: int = 64,
         s0 = state if state is not None else x.new_zeros(
             (B, H, headdim, d_state), dtype=F32)
         y, s_final = ssd_decode_step(s0, xh, dt, A, Bm, Cm)
-    y = y + params["D"][None, None, :, None].float() * xh.float()
+    y = y + Dskip[None, None, :, None].float() * xh.float()
     y = y.reshape(B, S, d_inner).to(x.dtype)
 
     # gated RMSNorm (Mamba2): norm(y * silu(z))
-    y = rmsnorm(y * F.silu(z.float()).to(y.dtype), params["norm"],
-                kernels=kernels)
-    return y @ params["out_proj"], (s_final, new_conv_state)
+    y = y * F.silu(z.float()).to(y.dtype)
+    if tp is None:
+        y = rmsnorm(y, norm, kernels=kernels) @ params["out_proj"]
+    else:
+        y = reduce_from(rmsnorm_split(y, norm, tp) @ params["out_proj"], tp,
+                        "model")
+    return y, (s_final, new_conv_state)

@@ -29,13 +29,17 @@ blocks by `param_shardings` (FSDP / ZeRO-3, as `rules.py` lays them out:
 layer's gathered over the batch axes just before use
 (`collectives.gather_param`, inside the layer's checkpoint, so remat
 gathers again).  The blocks that `split_blocks` names keep their "model"
-split and run tensor-parallel, as GSPMD runs the reference's: GQA on whole
-heads (`attention.heads_split`) and the GLU / GELU FFNs on d_ff, each
-entered through `copy_to` and left through one `reduce_from`; the MoE
-experts' d_ff stays split for `layers.moe_local`.  Every other block (MLA,
-Mamba2, RWKV6, RWKV's channel mix, zamba2's shared block, and any whose
-split would not fall on whole heads) is gathered whole over "model" too,
-the reference layout's own fallback.  A vocabulary split over "model"
+split and run tensor-parallel, as GSPMD runs the reference's: GQA
+(`attention.heads_split`), MLA, Mamba2 and RWKV6's time mix on whole
+heads, the GLU / GELU FFNs and RWKV's channel mix on d_ff, zamba2's
+shared block as GQA and GLU; each is entered through `copy_to` and left
+through one `reduce_from`.  A leaf whole over "model" that feeds a split
+block's work (`PART_LEAVES`, per block kind) sums its gradient over
+"model"; Mamba2's `in_proj` and `conv_w` come whole (`WHOLE_LEAVES`) and
+the rank takes its heads' columns (`ssm.local_spans`).  The MoE experts'
+d_ff stays split for `layers.moe_local`.  A block whose split would not
+fall on whole heads is gathered whole over "model" too, the reference
+layout's own fallback.  A vocabulary split over "model"
 (`vocab_tp`) makes the embedding a masked lookup summed over "model", and
 the head and `chunked_ce_loss` run on this rank's vocabulary rows.  The
 hidden state returned holds this rank's rows, whole over "model".
@@ -160,8 +164,12 @@ def apply_mixer(cfg: ArchConfig, p, x, positions, *, mesh=None, cache=None,
                 cur_len=None, mrope_positions=None, kv_seq_shard=False,
                 tp=None, kernels: bool = False):
     """Returns (y, cache); a recurrent mixer's new state is copied into the
-    cache's views in place.  `tp`: GQA's heads split over its "model"
-    ranks (`attention.gqa_attention`)."""
+    cache's views in place.  `tp`: the mixer's heads split over its
+    "model" ranks (`attention.gqa_attention`, `attention.mla_attention`,
+    `rwkv.rwkv6_time_mix`, `ssm.mamba2_block`); a recurrent mixer then
+    reads and writes its heads of the cache's state (and Mamba2 its conv
+    channels), which it takes as contiguous copies, as the scan kernels
+    need them."""
     if cfg.mixer == "gqa":
         return attn.gqa_attention(
             p, x, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -174,28 +182,32 @@ def apply_mixer(cfg: ArchConfig, p, x, positions, *, mesh=None, cache=None,
         return attn.mla_attention(
             p, x, positions, n_heads=cfg.n_heads, qk_nope=m["qk_nope"],
             qk_rope=m["qk_rope"], v_dim=m["v_dim"], kv_lora=m["kv_lora"],
-            rope_theta=cfg.rope_theta, cache=cache, cur_len=cur_len,
+            rope_theta=cfg.rope_theta, cache=cache, cur_len=cur_len, tp=tp,
             kernels=kernels)
     if cfg.mixer == "rwkv6":
-        state, last_tm = ((cache["state"], cache["last_tm"])
-                          if cache is not None else (None, None))
+        state, last_tm = None, None
+        if cache is not None:   # this rank's heads of the state (a copy)
+            view = cache["state"] if tp is None else \
+                rows(cache["state"], tp, "model", 1)
+            state, last_tm = view.contiguous(), cache["last_tm"]
         y, (s_new, last_new) = rwkv_mod.rwkv6_time_mix(
             p["tm"], x, head_dim=cfg.head_dim, state=state, last_x=last_tm,
-            kernels=kernels)
+            tp=tp, kernels=kernels)
         if cache is not None:
-            cache["state"].copy_(s_new)
+            view.copy_(s_new)
             cache["last_tm"].copy_(last_new)
         return y, cache
     if cfg.mixer == "mamba2":
         s = cfg.ssm
-        state, conv = ((cache["state"], cache["conv"])
-                       if cache is not None else (None, None))
+        state = conv = None
+        if cache is not None:
+            views, (state, conv) = ssm_mod.local_cache(
+                cache, s["d_state"], s["headdim"], tp)
         y, (s_new, conv_new) = ssm_mod.mamba2_block(
             p, x, d_state=s["d_state"], headdim=s["headdim"],
-            state=state, conv_state=conv, kernels=kernels)
+            state=state, conv_state=conv, tp=tp, kernels=kernels)
         if cache is not None:
-            cache["state"].copy_(s_new)
-            cache["conv"].copy_(conv_new)
+            ssm_mod.store_local(views, s_new, conv_new)
         return y, cache
     raise ValueError(cfg.mixer)
 
@@ -229,7 +241,8 @@ def apply_layer(cfg: ArchConfig, p, x, positions, *, mesh=None, dp=(),
         # rwkv channel-mix with its own token shift
         last_cm = cache["last_cm"] if cache is not None else None
         h = _apply_norm(cfg, p["ln2"], x, kernels=kernels)
-        y, last_cm_new = rwkv_mod.rwkv6_channel_mix(p["ffn"], h, last_cm)
+        y, last_cm_new = rwkv_mod.rwkv6_channel_mix(p["ffn"], h, last_cm,
+                                                    tp=tp("ffn"))
         if cache is not None:
             cache["last_cm"].copy_(last_cm_new)
         return x + y, cache, aux
@@ -252,16 +265,22 @@ def apply_layer(cfg: ArchConfig, p, x, positions, *, mesh=None, dp=(),
 
 
 def apply_shared_attn(cfg: ArchConfig, p, x, positions, *, cache=None,
-                      cur_len=None, kernels: bool = False):
-    """Zamba2 shared attention block (full attention, shared params)."""
+                      cur_len=None, mesh=None, split=frozenset(),
+                      kernels: bool = False):
+    """Zamba2 shared attention block (full attention, shared params).
+    The blocks named in `split` ("attn", "ffn") hold this rank's heads or
+    d_ff and run tensor-parallel over `mesh`'s "model" ranks."""
+    def tp(name):
+        return mesh if name in split else None
+
     h = _apply_norm(cfg, p["ln1"], x, kernels=kernels)
     y, cache = attn.gqa_attention(
         p["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         head_dim=cfg.head_dim, rope=cfg.rope, rope_theta=cfg.rope_theta,
-        cache=cache, cur_len=cur_len, kernels=kernels)
+        cache=cache, cur_len=cur_len, tp=tp("attn"), kernels=kernels)
     x = x + y
     h = _apply_norm(cfg, p["ln2"], x, kernels=kernels)
-    return x + glu_mlp(p["ffn"], h), cache
+    return x + glu_mlp(p["ffn"], h, tp=tp("ffn")), cache
 
 
 # ---------------------------------------------------------------------------
@@ -357,70 +376,145 @@ def _on_model(sharding, dim: int) -> bool:
     return any(d == dim and "model" in axes for d, axes in sharding.dims())
 
 
+# the blocks of a layer, each known by its parameters' names (RWKV's time
+# mix by its one subtree)
+BLOCK_KINDS = {
+    "gqa": {"wq", "wk", "wv", "wo"},
+    "glu": {"gate", "up", "down"},
+    "gelu": {"in", "in_b", "out", "out_b"},
+    "mla": {"wq", "wkv_a", "kv_norm", "wk_b", "wv_b", "wo"},
+    "mamba2": {"in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+               "norm", "out_proj"},
+    "rwkv_tm": {"tm"},
+    "rwkv_cm": {"mu_k", "Wk", "Wv", "Wr"},
+}
+
+# per kind, the leaves held whole over "model" whose use inside the split
+# block is a part of the work: each model rank's gradient is a part,
+# summed over "model" in the gather's backward.  Never the norms before a
+# block (ln1, ln2), GELU's `out_b` or the channel mix's `Wr`: they are
+# used on whole values, so every rank's gradient is already whole.
+PART_LEAVES = {
+    "gqa": frozenset({"wk", "wv"}),
+    "glu": frozenset(),
+    "gelu": frozenset({"in_b"}),
+    "mla": frozenset({"wkv_a", "kv_norm"}),
+    "mamba2": frozenset({"in_proj", "conv_w", "conv_b", "A_log", "D",
+                         "dt_bias", "norm"}),
+    "rwkv_tm": frozenset({"mu_r", "mu_k", "mu_v", "mu_w", "mu_g",
+                          "w_lora_a", "w_bias", "u", "ln_out"}),
+    "rwkv_cm": frozenset({"mu_k"}),
+}
+
+# per kind, the leaves the layout splits over "model" that the split block
+# takes whole: Mamba2's fused projections, whose stored column blocks fall
+# across heads (`ssm.local_spans` takes the rank's columns)
+WHOLE_LEAVES = {"mamba2": frozenset({"in_proj", "conv_w"})}
+
+
+def block_kind(block) -> str | None:
+    """The kind (`BLOCK_KINDS`) of a block's tree of parameters or of
+    their shardings, or None (a norm, the MoE FFN)."""
+    keys = set(block) if isinstance(block, dict) else set()
+    for kind, names in BLOCK_KINDS.items():
+        if keys == names:
+            return kind
+    return None
+
+
+def _splits(cfg: ArchConfig, kind, block) -> bool:
+    """Whether a block of `kind` laid out by `block` runs tensor-parallel:
+    its layout splits its weights over "model", on whole heads."""
+    if kind in ("glu", "gelu"):
+        return _on_model(block["gate" if kind == "glu" else "in"], 1)
+    if kind == "rwkv_cm":
+        return _on_model(block["Wk"], 1)
+    if kind == "mamba2":
+        s = cfg.ssm
+        w, dim = block["out_proj"], 0
+        heads = s.get("expand", 2) * cfg.d_model // s["headdim"]
+    elif kind == "rwkv_tm":
+        w, dim, heads = block["tm"]["Wr"], 1, cfg.d_model // cfg.head_dim
+    else:                                   # gqa, mla: `wq`'s columns
+        w, dim, heads = block["wq"], 1, cfg.n_heads
+    if not _on_model(w, dim):
+        return False
+    if kind == "gqa":
+        return attn.heads_split(cfg.n_heads, cfg.n_kv_heads, w.mesh)
+    return heads % w.mesh.size("model") == 0
+
+
 def split_blocks(cfg: ArchConfig, sh) -> frozenset:
-    """The names of the blocks of one layer, laid out by `sh`, that run
-    tensor-parallel over "model": GQA blocks whose `wq` the layout splits
-    over "model" on whole heads (`attention.heads_split`), and GLU / GELU
-    FFNs whose d_ff it splits.  The layout decides; nothing is caught.
+    """The names of the blocks of one layer (or of zamba2's shared block),
+    laid out by `sh`, that run tensor-parallel over "model": those whose
+    weights the layout splits over "model", on whole heads where the
+    block has heads (GQA by `attention.heads_split`; MLA, Mamba2 and
+    RWKV6's time mix by a whole count of heads a rank), and the GLU / GELU
+    FFNs and RWKV's channel mix on d_ff.  The layout decides; nothing is
+    caught.
 
         >>> from repro_torch.configs import ARCHS
         >>> from repro_torch.sharding.rules import Mesh
         >>> m = Mesh.abstract((16, 16), ("data", "model"))
-        >>> cfg = ARCHS["llama3.2-3b"]
-        >>> sorted(split_blocks(cfg, layer_shardings(
-        ...     param_shardings(cfg, m)["layers"])))
-        ['ffn']
+        >>> [sorted(split_blocks(ARCHS[a], layer_shardings(
+        ...     param_shardings(ARCHS[a], m)["layers"])))
+        ...  for a in ("llama3.2-3b", "rwkv6-3b", "zamba2-2.7b")]
+        [['ffn'], ['ffn'], ['mixer']]
     """
-    out = set()
-    for name, block in sh.items():
-        keys = set(block) if isinstance(block, dict) else set()
-        if keys == {"wq", "wk", "wv", "wo"}:
-            w = block["wq"]
-            if _on_model(w, 1) and attn.heads_split(
-                    cfg.n_heads, cfg.n_kv_heads, w.mesh):
-                out.add(name)
-        elif keys in ({"gate", "up", "down"}, {"in", "in_b", "out", "out_b"}):
-            if _on_model(block["gate" if "gate" in keys else "in"], 1):
-                out.add(name)
-    return frozenset(out)
+    return frozenset(name for name, block in sh.items()
+                     if (kind := block_kind(block)) is not None
+                     and _splits(cfg, kind, block))
 
 
-# leaves held whole over "model" whose use inside a split block is a part
-# of the work: each model rank's gradient is a part, summed over "model"
-_PART_LEAVES = frozenset({"wk", "wv", "in_b"})
-
-
-def _layer_gather(cfg, stacked_sh, dp, moe_layer):
-    """(a function gathering one layer of a group laid out by
-    `stacked_sh`, the names of the layer's tensor-parallel blocks), or
-    (None, frozenset()) without a mesh.  The split blocks (`split_blocks`)
-    and an MoE layer's FFN (`layers.moe_local`) keep their "model" split;
-    the split blocks' `_PART_LEAVES` sum their gradients over "model"."""
-    if stacked_sh is None:
-        return None, frozenset()
-    sh = layer_shardings(stacked_sh)
+def _block_gather(cfg, sh, dp, keep_ffn=False):
+    """(a function putting the blocks of one layer (or of zamba2's shared
+    block), laid out by `sh`, together for use, the names of its
+    tensor-parallel blocks).  The split blocks (`split_blocks`) keep their
+    "model" split but for their `WHOLE_LEAVES`, and their `PART_LEAVES`
+    sum their gradients over "model"; `keep_ffn` keeps the "model" split
+    of the FFN too (an MoE layer's experts, `layers.moe_local`)."""
     split = split_blocks(cfg, sh)
-    moe = cfg.ffn == "moe" and moe_layer
-    gate = sh["ffn"]["gate"] if moe else None
-    if moe and gate.mesh.size("model") > 1 and not _on_model(gate, 2):
-        raise ValueError("the experts' d_ff does not split over the "
-                         "'model' axis")
     part = tuple(dp) + ("model",)
+
+    def block(sub, bsh, kind):
+        parts = PART_LEAVES[kind]
+        whole = WHOLE_LEAVES.get(kind, frozenset())
+
+        def leaf(x, s, name):
+            if isinstance(x, dict):
+                return {k: leaf(v, s[k], k) for k, v in x.items()}
+            return gather_param(x, s, part if name in parts else dp,
+                                keep=() if name in whole else ("model",))
+        return leaf(sub, bsh, None)
 
     def gather(lp):
         out = {}
         for name, sub in lp.items():
             if name in split:
-                out[name] = {k: gather_param(
-                    v, sh[name][k], part if k in _PART_LEAVES else dp,
-                    keep=("model",)) for k, v in sub.items()}
-            elif moe and name == "ffn":
+                out[name] = block(sub, sh[name], block_kind(sh[name]))
+            elif keep_ffn and name == "ffn":
                 out[name] = gather_params(sub, sh[name], dp, keep=("model",))
             else:
                 out[name] = gather_params(sub, sh[name], dp)
         return out
 
     return gather, split
+
+
+def _layer_gather(cfg, stacked_sh, dp, moe_layer):
+    """(a function gathering one layer of a group laid out by
+    `stacked_sh`, the names of the layer's tensor-parallel blocks), or
+    (None, frozenset()) without a mesh (`_block_gather`; an MoE layer's
+    FFN keeps its experts' "model" split for `layers.moe_local`)."""
+    if stacked_sh is None:
+        return None, frozenset()
+    sh = layer_shardings(stacked_sh)
+    moe = cfg.ffn == "moe" and moe_layer
+    gate = sh["ffn"]["gate"] if moe else None
+    if moe and gate.mesh.size("model") > 1 and not _on_model(gate, 2):
+        raise ValueError("the experts' d_ff does not split over the "
+                         "'model' axis")
+    return _block_gather(cfg, sh, dp, keep_ffn=moe)
 
 
 def _run_layers(cfg, layers, x, positions, *, moe_layer=False, caches=None,
@@ -532,7 +626,10 @@ def decoder_forward(cfg: ArchConfig, params, tokens, *, mesh=None,
     if cfg.hybrid:  # zamba2: groups of mamba layers + shared attention block
         every = cfg.hybrid["attn_every"]
         layers = _unstack(params["layers"])
-        shared = whole("shared_attn")
+        shared, shared_split = params["shared_attn"], frozenset()
+        if sh is not None:
+            fn, shared_split = _block_gather(cfg, sh["shared_attn"], dp)
+            shared = fn(shared)
         for g in range(cfg.n_layers // every):
             x, _ = _run_layers(cfg, layers[g * every:(g + 1) * every], x,
                                positions, caches=group("layers"),
@@ -541,7 +638,8 @@ def decoder_forward(cfg: ArchConfig, params, tokens, *, mesh=None,
             x, _ = apply_shared_attn(
                 cfg, shared, x, positions,
                 cache=None if caches is None else _index(caches["shared"], g),
-                cur_len=cur_len, kernels=kernels)
+                cur_len=cur_len, mesh=mesh, split=shared_split,
+                kernels=kernels)
     else:
         run.update(mrope_positions=mrope_positions, kv_seq_shard=kv_seq_shard)
         if "dense_layers" in params:

@@ -21,8 +21,10 @@ backward.  `input_specs` gives each cell's data arguments as meta tensors
 `mesh` (`sharding.rules.Mesh`): the batch (whole on every rank) splits
 over the data-parallel axes, the parameters are this rank's blocks
 (`transformer.param_shardings`), the dense blocks the layout splits over
-"model" run tensor-parallel (`transformer.split_blocks`), the caches are
-this rank's blocks by `cache_shardings`, and the logits (or the loss) come
+"model" run tensor-parallel (`transformer.split_blocks`: attention, MLA,
+Mamba2 and RWKV6 on whole heads, the FFNs and RWKV's channel mix on d_ff),
+the caches are this rank's blocks by `cache_shardings` (a split mixer
+reads and writes only its heads of them), and the logits (or the loss) come
 back whole on every rank: the last-token logits of a vocabulary split over
 "model" gathered over it (`collectives.gather_from`), the loss through the
 vocab-parallel cross entropy.  `decode_step(kv_seq_shard=True)` runs GQA's decode attention
@@ -154,22 +156,38 @@ def cache_shardings(cfg: ArchConfig, batch: int, max_len: int, mesh,
     return sh
 
 
-def kernel_launches(cfg: ArchConfig) -> tuple[dict, dict]:
+def kernel_launches(cfg: ArchConfig, mesh=None) -> tuple[dict, dict]:
     """Each CUDA kernel's launches in one prefill and in one decode step of
-    `cfg` on the kernel path (kernels absent from a dict launch 0 times)."""
+    `cfg` on the kernel path (kernels absent from a dict launch 0 times),
+    on one rank of `mesh`: where Mamba2 or RWKV6's time mix runs
+    tensor-parallel, its norm over the split row (the gated norm,
+    `ln_out`) is `layers.rmsnorm_split`'s plain math, by design, and
+    launches no `rmsnorm`.
+
+        >>> from repro_torch.configs import ARCHS
+        >>> from repro_torch.sharding.rules import Mesh
+        >>> m = Mesh.abstract((1, 2), ("data", "model"))
+        >>> [kernel_launches(ARCHS["rwkv6-3b"], x)[0]["rmsnorm"]
+        ...  for x in (None, m)]
+        [97, 65]
+    """
     n = cfg.n_layers
+    split_norms = 0
+    if mesh is not None and cfg.mixer in ("mamba2", "rwkv6"):
+        sh = tfm.layer_shardings(tfm.param_shardings(cfg, mesh)["layers"])
+        split_norms = n if "mixer" in tfm.split_blocks(cfg, sh) else 0
     if cfg.family == "encdec":      # layernorm; encoder, self, cross
         flash = cfg.enc["enc_layers"] + 2 * n
         return ({"flash_attention": flash},
                 {"decode_attention": n, "flash_attention": n})
     if cfg.hybrid:                  # Mamba2 layers + the shared block
         g = n // cfg.hybrid["attn_every"]
-        norms = 2 * n + 2 * g + 1   # ln1 and the gated norm; ln1, ln2
+        norms = 2 * n + 2 * g + 1 - split_norms  # ln1, gated; ln1, ln2
         return ({"rmsnorm": norms, "flash_attention": g, "ssd_scan": n},
                 {"rmsnorm": norms, "decode_attention": g})
     if cfg.mixer == "rwkv6":        # ln1, ln_out, ln2
-        return ({"rmsnorm": 3 * n + 1, "rwkv6_scan": n},
-                {"rmsnorm": 3 * n + 1})
+        norms = 3 * n + 1 - split_norms
+        return ({"rmsnorm": norms, "rwkv6_scan": n}, {"rmsnorm": norms})
     moe = 3 * (n - cfg.moe["first_dense_layers"]) if cfg.ffn == "moe" else 0
     if cfg.mixer == "mla":          # ln1, kv_norm, ln2; plain attention
         return ({"rmsnorm": 3 * n + 1, "moe_gemm": moe},

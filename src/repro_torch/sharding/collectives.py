@@ -20,6 +20,10 @@ the parts:
   reduce_from    sum over `axes`; backward identity (work split over
                  `axes` leaving as one replicated value, Megatron's "g",
                  `jax.lax.psum`)
+  sum_over       sum over `axes`; backward sums too (a statistic each
+                 rank computes over its part of a row, summed and then
+                 used by every rank's split work: the sum of squares of
+                 an RMSNorm over channels split over "model")
   max_over       max over `axes`, no gradient (the shift of a logsumexp
                  over a vocabulary split over `axes`, whose value does not
                  depend on it)
@@ -136,6 +140,26 @@ def reduce_from(x, mesh: Mesh, axes):
     if mesh.size(axes) == 1:
         return x
     return _ReduceFrom.apply(x, mesh, axes)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
+def sum_over(x, mesh: Mesh, axes):
+    """`reduce_from` whose result feeds split work again: its cotangent is
+    a part on each rank, summed over `axes` (`copy_to(reduce_from(x))`
+    in one collective each way)."""
+    if mesh.size(axes) == 1:
+        return x
+    return _SumOver.apply(x, mesh, axes)
 
 
 def max_over(x, mesh: Mesh, axes):

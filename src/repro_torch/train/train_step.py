@@ -17,14 +17,18 @@ are this rank's blocks by `transformer.param_shardings` (FSDP / ZeRO-3),
 the batch is the global batch on every rank, and `zoo.train_loss` splits
 its rows over the data-parallel ranks, gathers each layer's weights over
 them before use and sums the gradients over those ranks in the gathers'
-backward (`sharding.collectives`).  The dense blocks split over "model"
+backward (`sharding.collectives`).  The blocks split over "model"
 (`transformer.split_blocks`, the vocabulary by `transformer.vocab_tp`)
 run tensor-parallel: a split leaf's gradient is this rank's block; a leaf
-held whole over "model" that feeds the split work (`wk` and `wv`, whose
-K/V feed only this rank's heads; GELU's `in_b`, sliced to its d_ff) gets
-a part on each model rank, summed over "model" in its gather's backward;
-a leaf used on the replicated side of the split (`out_b` after the sum,
-the norms) already has its whole gradient, the same on every model rank.
+held whole over "model" that feeds the split work
+(`transformer.PART_LEAVES`: `wk` and `wv`, whose K/V feed only this
+rank's heads; GELU's `in_b`, sliced to its d_ff; MLA's `wkv_a` and
+`kv_norm`; Mamba2's `in_proj`, `conv_w` and per-head leaves; RWKV's token
+mixes, `w_lora_a`, `u`, `w_bias` and `ln_out`) gets a part on each model
+rank, summed over "model" in its gather's backward; a leaf used on the
+replicated side of the split (`out_b` after the sum, the channel mix's
+`Wr`, the norms before a block) already has its whole gradient, the same
+on every model rank.
 So every leaf's gradient blocks are those of the reference's gradient,
 and the clipping norm and the int8 scales are taken over whole leaves,
 each block once (`optimizer.split_sum` over the axes a leaf splits over).

@@ -128,10 +128,12 @@ def ref_cfg(spec):
 
 
 def tp_case(case_id: str, spec, mesh, *, train=False, kv=False,
-            seed=0) -> dict:
+            seed=0, waves=1, mutate=None) -> dict:
     """A case's inputs: the reference's seeded weights, B x S tokens (and
     labels, whisper's frames, three distinct M-RoPE streams) from numpy,
-    and TP_STEPS decode tokens."""
+    and TP_STEPS decode tokens; `waves` - 1 more prompts, each served
+    after the last wave's steps from the caches it left; `mutate`: see
+    `_torch_mesh_worker.tp_train`."""
     rc = ref_cfg(spec)
     params = ref_init(ref_zoo.build_param_specs(rc), jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
@@ -150,7 +152,10 @@ def tp_case(case_id: str, spec, mesh, *, train=False, kv=False,
     return {"id": case_id, "mesh": tuple(mesh), "cfg": spec,
             "params": to_wire(jax.tree.map(np.asarray, params)),
             "batch": batch, "max_len": TP_MAX_LEN, "kv": kv,
-            "steps": rng.integers(1, rc.vocab, (TP_STEPS, TP_B))}
+            "steps": rng.integers(1, rc.vocab, (TP_STEPS, TP_B)),
+            "waves": [rng.integers(1, rc.vocab, (TP_B, TP_S))
+                      for _ in range(waves - 1)],
+            "mutate": mutate}
 
 
 def _ref_placed(case):
@@ -169,9 +174,11 @@ def _ref_placed(case):
     return rc, mesh, params, batch
 
 
-def tp_serve_reference(case) -> list:
+def tp_serve_reference(case):
     """The reference's jitted `zoo.prefill` and `decode_step`s of a case on
-    a JAX host mesh of its shape: every step's float32 logits."""
+    a JAX host mesh of its shape, wave after wave on the same caches:
+    (every step's float32 logits, the recurrent state (L, B, H, ...) the
+    last wave left, or None)."""
     rc, mesh, params, batch = _ref_placed(case)
     cspecs = ref_zoo.build_cache_specs(rc, TP_B, case["max_len"])
     caches = jax.device_put(ref_init(cspecs, jax.random.PRNGKey(0)),
@@ -179,17 +186,24 @@ def tp_serve_reference(case) -> list:
     enc = None
     if rc.family == "encdec":
         enc = jnp.zeros((TP_B, rc.enc["enc_len"], rc.d_model), rc.dtype)
+    waves = [batch] + [dict(batch, tokens=jax.device_put(
+        jnp.asarray(t, jnp.int32), batch["tokens"].sharding))
+        for t in case["waves"]]
+    out = []
     with compat_set_mesh(mesh):
-        logits, caches = jax.jit(functools.partial(
-            ref_zoo.prefill, rc, mesh=mesh))(params, batch, caches)
-        out = [np.asarray(logits, np.float32)]
+        prefill = jax.jit(functools.partial(ref_zoo.prefill, rc, mesh=mesh))
         step = jax.jit(lambda p, t, c, n, e: ref_zoo.decode_step(
             rc, p, t, c, n, mesh=mesh, enc_out=e))
-        for t, tok in enumerate(case["steps"]):
-            logits, caches = step(params, jnp.asarray(tok, jnp.int32)[:, None],
-                                  caches, jnp.int32(TP_S + t), enc)
+        for wave in waves:
+            logits, caches = prefill(params, wave, caches)
             out.append(np.asarray(logits, np.float32))
-    return out
+            for t, tok in enumerate(case["steps"]):
+                logits, caches = step(params,
+                                      jnp.asarray(tok, jnp.int32)[:, None],
+                                      caches, jnp.int32(TP_S + t), enc)
+                out.append(np.asarray(logits, np.float32))
+    state = caches.get("layers", {}).get("state")
+    return out, None if state is None else np.asarray(state, np.float32)
 
 
 def tp_train_reference(case):

@@ -605,13 +605,33 @@ def _tp_setup(case, world):
 
 
 def _tp_split(cfg, mesh, sh) -> dict:
-    """{stacked group: its tensor-parallel blocks}, and "vocab"."""
+    """{stacked group: its tensor-parallel blocks}, zamba2's shared
+    block's, and "vocab"."""
     from repro_torch.models import transformer as tfm
     out = {g: sorted(tfm.split_blocks(cfg, tfm.layer_shardings(sh[g])))
            for g in ("layers", "dense_layers", "enc_layers", "dec_layers")
            if g in sh}
+    if "shared_attn" in sh:
+        out["shared_attn"] = sorted(tfm.split_blocks(cfg, sh["shared_attn"]))
     out["vocab"] = tfm.vocab_tp(cfg, mesh) is not None
     return out
+
+
+def _local_state(cfg, mesh, sh, caches):
+    """(first head, this rank's heads of the recurrent state (L, B, H,
+    ...)) of a Mamba2 or RWKV6 cache, or None: the heads a rank of a
+    split mixer reads and writes (every head where the mixer is
+    gathered)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding.collectives import rows
+    if cfg.mixer not in ("mamba2", "rwkv6"):
+        return None
+    state = caches["layers"]["state"]
+    if "mixer" not in tfm.split_blocks(cfg, tfm.layer_shardings(
+            sh["layers"])):
+        return 0, _np(state)
+    local = rows(state, mesh, "model", 2)
+    return mesh.index("model") * local.shape[2], _np(local)
 
 
 @scenario
@@ -634,22 +654,28 @@ def tp_serve(rank, world, inputs):
         caches = init_from_specs(local_specs(
             zoo.build_cache_specs(cfg, B, T),
             zoo.cache_shardings(cfg, B, T, mesh, kv)), 0, device="cpu")
-        logits, caches = zoo.prefill(cfg, p, batch, caches, mesh=mesh,
-                                     kv_seq_shard=kv)
-        steps = [_np(logits)]
         enc = None
         if cfg.family == "encdec":
             enc = encdec.encode(cfg, p, batch["enc_embeds"], mesh=mesh)
-        for t, tok in enumerate(case["steps"]):
-            logits, caches = zoo.decode_step(
-                cfg, p, _tensor(tok)[:, None], caches, S + t, mesh=mesh,
-                kv_seq_shard=kv, enc_out=enc)
+        steps = []
+        for wave in [batch] + [{"tokens": _tensor(t)}
+                               for t in case.get("waves", [])]:
+            # a later wave starts from the state the last one left, as
+            # the reference's engine does
+            logits, caches = zoo.prefill(cfg, p, wave, caches, mesh=mesh,
+                                         kv_seq_shard=kv)
             steps.append(_np(logits))
+            for t, tok in enumerate(case["steps"]):
+                logits, caches = zoo.decode_step(
+                    cfg, p, _tensor(tok)[:, None], caches, S + t,
+                    mesh=mesh, kv_seq_shard=kv, enc_out=enc)
+                steps.append(_np(logits))
         k = caches["self_k"] if cfg.family == "encdec" else \
-            caches["layers"]["k"]
+            next(iter(caches["layers"].values()))
         out.append({"id": case["id"], "logits": steps,
                     "split": _tp_split(cfg, mesh, sh),
-                    "cache": tuple(k.shape)})
+                    "cache": tuple(k.shape),
+                    "state": _local_state(cfg, mesh, sh, caches)})
     return out
 
 
@@ -657,9 +683,13 @@ def tp_serve(rank, world, inputs):
 def tp_train(rank, world, inputs):
     """`zoo.train_loss` (remat on) and its gradients on each case's mesh
     that covers the world: the loss, every gradient leaf put back whole
-    from the ranks' blocks, and this rank's block shapes."""
+    from the ranks' blocks, and this rank's block shapes.  A case's
+    `mutate` (block kind, "drop" or "add", leaf) takes the leaf out of
+    that kind's `transformer.PART_LEAVES` or puts it in, for that case
+    only: a gradient left unsummed over "model", or summed twice."""
     import torch
 
+    from repro_torch.models import transformer as tfm
     from repro_torch.models import zoo
     from repro_torch.models.module import tree_leaves, tree_unflatten
     from repro_torch.sharding.rules import gather_tree
@@ -670,10 +700,18 @@ def tp_train(rank, world, inputs):
             continue
         cfg, mesh, p, sh, batch = setup
         leaves = [x.detach().requires_grad_() for x in tree_leaves(p)]
-        loss = zoo.train_loss(cfg, tree_unflatten(p, leaves), batch,
-                              mesh=mesh, remat=True)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
+        parts = dict(tfm.PART_LEAVES)
+        if case.get("mutate"):
+            kind, how, leaf = case["mutate"]
+            tfm.PART_LEAVES[kind] = (parts[kind] - {leaf} if how == "drop"
+                                     else parts[kind] | {leaf})
+        try:
+            loss = zoo.train_loss(cfg, tree_unflatten(p, leaves), batch,
+                                  mesh=mesh, remat=True)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        finally:
+            tfm.PART_LEAVES.update(parts)
         whole = gather_tree(tree_unflatten(p, list(grads)), sh)
         out.append({"id": case["id"], "loss": float(loss.detach()),
                     "grads": [_np(g) for g in tree_leaves(whole)],
