@@ -468,6 +468,8 @@ def device_times(fn) -> tuple[float, list]:
         if getattr(ev, "device_type", None) is not None and \
                 "CUDA" not in str(ev.device_type):
             continue
+        if getattr(ev, "is_user_annotation", False):
+            continue            # a program span's range, not device work
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
         if dev_us > 0:

@@ -39,6 +39,7 @@ from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch.models.module import ParamSpec
+from repro_torch.obs.realtime import device_tracer
 from repro_torch.sharding.collectives import (all_reduce, copy_to,
                                               mean_over, reduce_from, rows,
                                               sum_over)
@@ -398,7 +399,10 @@ def moe_local(params, x, *, top_k: int, mesh=None, dp=(),
     over `tp_axis` in bf16 after rounding (`reduce_from`); the tokens and
     the routing weights enter the d_ff-split work through `copy_to`, so
     their gradients sum over `tp_axis`; `aux` is averaged over `dp`.
-    Returns (this rank's rows of the output, aux)."""
+    Returns (this rank's rows of the output, aux).  While a profiler
+    records, the capacity path counts its routed rows (`moe.rows_routed`,
+    n x top_k) and the rows past an expert's capacity (`moe.rows_dropped`)
+    on the device channel."""
     tp = tp_axis if mesh is not None and tp_axis in mesh.axis_names \
         else None
     B, S, D = x.shape
@@ -435,6 +439,9 @@ def moe_local(params, x, *, top_k: int, mesh=None, dp=(),
         rank = torch.empty_like(flat_e)
         rank[order] = idx - group_start
         ok = rank < C
+        tr = device_tracer()
+        tr.count("moe.rows_routed", n * top_k)
+        tr.count("moe.rows_dropped", lambda: (~ok).sum())
         rank_c = torch.clamp_max(rank, C - 1)
         tok = idx // top_k
         contrib = torch.where(ok[:, None], xf[tok], 0)

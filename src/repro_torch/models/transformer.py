@@ -60,6 +60,7 @@ from repro_torch.models.layers import (gelu_mlp, gelu_mlp_specs, glu_mlp,
                                        glu_mlp_specs, layernorm, moe_local,
                                        moe_specs, rmsnorm)
 from repro_torch.models.module import ParamSpec, tree_map
+from repro_torch.obs.realtime import device_tracer
 from repro_torch.sharding.collectives import (copy_to, gather_param,
                                               gather_params, max_over,
                                               reduce_from, rows)
@@ -222,18 +223,22 @@ def apply_layer(cfg: ArchConfig, p, x, positions, *, mesh=None, dp=(),
     With a `mesh`, x holds this rank's rows of a batch split over `dp` and
     `p` is whole but for the MoE experts' d_ff slice and the blocks named
     in `split` ("mixer", "ffn"), which hold this rank's heads or d_ff and
-    run tensor-parallel over "model" (`decoder_forward`)."""
+    run tensor-parallel over "model" (`decoder_forward`).  While a profiler
+    records, the mixer and the FFN are the device channel's `model.mixer`
+    and `model.ffn` spans."""
     aux = None
+    tr = device_tracer()
 
     def tp(name):
         return mesh if name in split else None
 
     h = _apply_norm(cfg, p["ln1"], x, kernels=kernels)
-    y, cache = apply_mixer(cfg, p["mixer"], h, positions, mesh=mesh,
-                           cache=cache, cur_len=cur_len,
-                           mrope_positions=mrope_positions,
-                           kv_seq_shard=kv_seq_shard, tp=tp("mixer"),
-                           kernels=kernels)
+    with tr.span("model.mixer"):
+        y, cache = apply_mixer(cfg, p["mixer"], h, positions, mesh=mesh,
+                               cache=cache, cur_len=cur_len,
+                               mrope_positions=mrope_positions,
+                               kv_seq_shard=kv_seq_shard, tp=tp("mixer"),
+                               kernels=kernels)
     if names:
         y = checkpoint_name(y, "mixer_out")
     x = x + y
@@ -241,23 +246,25 @@ def apply_layer(cfg: ArchConfig, p, x, positions, *, mesh=None, dp=(),
         # rwkv channel-mix with its own token shift
         last_cm = cache["last_cm"] if cache is not None else None
         h = _apply_norm(cfg, p["ln2"], x, kernels=kernels)
-        y, last_cm_new = rwkv_mod.rwkv6_channel_mix(p["ffn"], h, last_cm,
-                                                    tp=tp("ffn"))
+        with tr.span("model.ffn"):
+            y, last_cm_new = rwkv_mod.rwkv6_channel_mix(p["ffn"], h, last_cm,
+                                                        tp=tp("ffn"))
         if cache is not None:
             cache["last_cm"].copy_(last_cm_new)
         return x + y, cache, aux
     if "ffn" in p:
         h = _apply_norm(cfg, p["ln2"], x, kernels=kernels)
-        if cfg.ffn == "moe" and moe_layer:
-            y, aux = moe_local(
-                p["ffn"], h, top_k=cfg.moe["top_k"], mesh=mesh, dp=dp,
-                impl=cfg.moe.get("impl", "capacity"),
-                capacity_factor=cfg.moe.get("capacity_factor", 1.25),
-                kernels=kernels)
-        elif cfg.ffn == "gelu":
-            y = gelu_mlp(p["ffn"], h, tp=tp("ffn"))
-        else:
-            y = glu_mlp(p["ffn"], h, tp=tp("ffn"))
+        with tr.span("model.ffn"):
+            if cfg.ffn == "moe" and moe_layer:
+                y, aux = moe_local(
+                    p["ffn"], h, top_k=cfg.moe["top_k"], mesh=mesh, dp=dp,
+                    impl=cfg.moe.get("impl", "capacity"),
+                    capacity_factor=cfg.moe.get("capacity_factor", 1.25),
+                    kernels=kernels)
+            elif cfg.ffn == "gelu":
+                y = gelu_mlp(p["ffn"], h, tp=tp("ffn"))
+            else:
+                y = glu_mlp(p["ffn"], h, tp=tp("ffn"))
         if names:
             y = checkpoint_name(y, "ffn_out")
         x = x + y

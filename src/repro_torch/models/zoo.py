@@ -45,6 +45,7 @@ from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.module import ParamSpec, count_params, stack_specs
 from repro_torch.models.ssm import CONV_W
+from repro_torch.obs.realtime import device_tracer
 from repro_torch.sharding.collectives import gather_from, mean_over, rows
 from repro_torch.sharding.rules import (DEFAULT_RULES, all_gather,
                                         batch_axes, tree_shardings)
@@ -211,16 +212,18 @@ def _whole_rows(x, mesh, dp):
 def _logits(cfg, params, x, mesh, dp):
     """float32 logits (B, V) of the last hidden rows `x`, whole on every
     rank: this rank's vocabulary gathered over "model", its rows over
-    `dp`."""
-    logits = tfm.lm_head(cfg, params, x, mesh=mesh, dp=dp)
-    if tfm.vocab_tp(cfg, mesh) is not None:
-        logits = gather_from(logits, mesh, "model", -1)
-    return _whole_rows(logits, mesh, dp)
+    `dp` (the device channel's `model.head` span)."""
+    with device_tracer().span("model.head"):
+        logits = tfm.lm_head(cfg, params, x, mesh=mesh, dp=dp)
+        if tfm.vocab_tp(cfg, mesh) is not None:
+            logits = gather_from(logits, mesh, "model", -1)
+        return _whole_rows(logits, mesh, dp)
 
 
 def _ce(cfg, params, x, labels, mesh, dp):
-    return tfm.chunked_ce_loss(x, tfm.head_of(cfg, params, mesh, dp), labels,
-                               tp=tfm.vocab_tp(cfg, mesh))
+    with device_tracer().span("model.head"):
+        return tfm.chunked_ce_loss(x, tfm.head_of(cfg, params, mesh, dp),
+                                   labels, tp=tfm.vocab_tp(cfg, mesh))
 
 
 def train_loss(cfg: ArchConfig, params, batch, *, mesh=None, remat=True):

@@ -18,6 +18,13 @@ hand-written CUDA kernels on the card and the plain model math on the CPU
 (see `repro_torch.models.zoo`).  Each step reads the sampled tokens back
 once (`tolist()`), the engine's only host sync.
 
+While a `torch.profiler` records, the engine marks its phases on the
+device channel (`repro_torch.obs.realtime.device_tracer`): `serve.prefill`
+(padding, copy, forward, argmax), `serve.readback` (the `tolist()`) and
+`serve.decode`, each with its wave's sequence number, and counts the
+prefill's positions (`serve.prefill_positions`, slots x `prompt_len`) and
+the admitted prompts' kept tokens (`serve.prefill_tokens`).
+
 `mesh` (a `sharding.rules.Mesh`, or None for one device, where the
 reference always takes one): the engine keeps this rank's blocks of the
 weights (`transformer.param_shardings`) and of the caches
@@ -37,6 +44,7 @@ from repro_torch.core.vectorized import resolve_device
 from repro_torch.models import zoo
 from repro_torch.models.module import init_from_specs
 from repro_torch.models.transformer import param_shardings, resolve_kernels
+from repro_torch.obs.realtime import device_tracer
 from repro_torch.sharding.rules import local_specs, shard_tree
 from repro_torch.serve.batching import SlotBatcher
 
@@ -76,6 +84,7 @@ class ServeEngine:
                 cfg, batch_slots, max_len, mesh))
         self.caches = init_from_specs(cspecs, 0, device=self.device)
         self.cur_len = 0
+        self.wave = 0           # prefills so far: the spans' identifier
 
     # ---- step methods -------------------------------------------------
     def prefill_step(self, requests: list[Request]):
@@ -84,28 +93,41 @@ class ServeEngine:
         and returns the first greedily sampled token per slot."""
         if len(requests) > self.B:
             raise ValueError(f"{len(requests)} requests for {self.B} slots")
-        S = self.prompt_len
-        prompts = np.zeros((self.B, S), np.int64)
-        for i, r in enumerate(requests):
-            p = np.asarray(r.prompt)[-S:]
-            prompts[i, S - len(p):] = p
-        tokens = torch.as_tensor(prompts, device=self.device)
-        logits, self.caches = zoo.prefill(self.cfg, self.params,
-                                          {"tokens": tokens}, self.caches,
-                                          mesh=self.mesh,
-                                          kernels=self.kernels)
-        self.cur_len = S
-        return torch.argmax(logits, dim=-1)
+        self.wave += 1
+        tr = device_tracer()
+        with tr.span("serve.prefill", wave=self.wave):
+            S = self.prompt_len
+            prompts = np.zeros((self.B, S), np.int64)
+            kept = 0
+            for i, r in enumerate(requests):
+                p = np.asarray(r.prompt)[-S:]
+                prompts[i, S - len(p):] = p
+                kept += len(p)
+            tr.count("serve.prefill_positions", self.B * S)
+            tr.count("serve.prefill_tokens", kept)
+            tokens = torch.as_tensor(prompts, device=self.device)
+            logits, self.caches = zoo.prefill(self.cfg, self.params,
+                                              {"tokens": tokens}, self.caches,
+                                              mesh=self.mesh,
+                                              kernels=self.kernels)
+            self.cur_len = S
+            return torch.argmax(logits, dim=-1)
 
     def decode_once(self, tok):
         """One decode step for every slot: consumes the previous token
         per slot, advances the shared sequence clock, returns the next
         greedily sampled token per slot."""
-        logits, self.caches = zoo.decode_step(
-            self.cfg, self.params, tok[:, None], self.caches, self.cur_len,
-            mesh=self.mesh, kernels=self.kernels)
-        self.cur_len += 1
-        return torch.argmax(logits, dim=-1)
+        with device_tracer().span("serve.decode", wave=self.wave):
+            logits, self.caches = zoo.decode_step(
+                self.cfg, self.params, tok[:, None], self.caches,
+                self.cur_len, mesh=self.mesh, kernels=self.kernels)
+            self.cur_len += 1
+            return torch.argmax(logits, dim=-1)
+
+    def readback(self, tok) -> list:
+        """The sampled tokens on the host (the engine's one sync)."""
+        with device_tracer().span("serve.readback", wave=self.wave):
+            return tok.tolist()
 
     # ------------------------------------------------------------------
     def run(self, requests: list[Request]):
@@ -113,7 +135,7 @@ class ServeEngine:
         tok = self.prefill_step(requests)
         max_new = max(r.max_new_tokens for r in requests)
         for _ in range(max_new):
-            host = tok.tolist()
+            host = self.readback(tok)
             for i, r in enumerate(requests):
                 if len(r.out_tokens) < r.max_new_tokens:
                     r.out_tokens.append(host[i])
@@ -140,7 +162,7 @@ class ServeEngine:
                 batcher.admit(rid)
             tok = self.prefill_step([requests[rid] for rid in cohort])
             while batcher.active():
-                host = tok.tolist()
+                host = self.readback(tok)
                 for slot, rid in enumerate(cohort):
                     r = requests[rid]
                     if r.done:

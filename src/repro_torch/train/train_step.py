@@ -32,6 +32,11 @@ on every model rank.
 So every leaf's gradient blocks are those of the reference's gradient,
 and the clipping norm and the int8 scales are taken over whole leaves,
 each block once (`optimizer.split_sum` over the axes a leaf splits over).
+
+While a `torch.profiler` records, a step marks its phases on the device
+channel (`repro_torch.obs.realtime.device_tracer`): `train.forward` (the
+loss), `train.backward` (`torch.autograd.grad`, a microbatch each) and
+`train.optimizer` (`adamw_update`), each with the step's sequence number.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models import zoo
 from repro_torch.models.module import (ParamSpec, tree_leaves, tree_map,
                                        tree_unflatten)
+from repro_torch.obs.realtime import device_tracer
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state, opt_state_specs,
                                          split_sum)
@@ -127,14 +133,18 @@ def make_train_step(cfg: ArchConfig, mesh, step_cfg: TrainStepConfig):
     metrics); params and the moments are updated in place.  mesh: None
     (one device) or a `sharding.rules.Mesh` (module docstring)."""
     shardings = None if mesh is None else tfm.param_shardings(cfg, mesh)
+    step = 0                    # steps so far: the spans' identifier
 
     def value_and_grad(params, batch):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        tr = device_tracer()
         with torch.enable_grad():
-            loss = zoo.train_loss(cfg, tree_unflatten(params, leaves), batch,
-                                  mesh=mesh, remat=step_cfg.remat)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
+            with tr.span("train.forward", step=step):
+                loss = zoo.train_loss(cfg, tree_unflatten(params, leaves),
+                                      batch, mesh=mesh, remat=step_cfg.remat)
+            with tr.span("train.backward", step=step):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
         return loss.detach(), tree_unflatten(params, list(grads))
 
     def grads_of(params, batch):
@@ -156,13 +166,16 @@ def make_train_step(cfg: ArchConfig, mesh, step_cfg: TrainStepConfig):
         return loss_acc / mb, grads
 
     def train_step(params, opt_state, batch):
+        nonlocal step
+        step += 1
         loss, grads = grads_of(params, batch)
         if step_cfg.grad_compress:
             grads, new_ef = compress_grads(grads, opt_state["ef"], shardings)
         state = {k: v for k, v in opt_state.items() if k != "ef"}
         del opt_state
-        new_params, new_state, metrics = adamw_update(
-            step_cfg.opt, params, grads, state, shardings=shardings)
+        with device_tracer().span("train.optimizer", step=step):
+            new_params, new_state, metrics = adamw_update(
+                step_cfg.opt, params, grads, state, shardings=shardings)
         if step_cfg.grad_compress:
             new_state["ef"] = new_ef
         metrics["loss"] = loss
