@@ -2,7 +2,11 @@
 `repro/models/layers.py`: norms, rotary embeddings (RoPE and Qwen2-VL's
 M-RoPE), blocked
 (FlashAttention-style memory-efficient) attention, decode attention and the
-GLU / GELU MLPs, and the fine-grained MoE FFN.
+GLU / GELU MLPs, and the fine-grained MoE FFN.  The MoE's capacity path
+moves rows between tokens and expert slots through a slot table
+(`moe_local`): the dispatch and the combine are gathers, each the other's
+backward, and nothing accumulates; while a profiler records, it counts
+the rows routed and dropped and the E x C slots (`moe.slots`).
 
 Everything is pure-functional over param dicts produced from ParamSpec trees
 (see module.py). Attention math accumulates in fp32; weights/activations are
@@ -329,6 +333,57 @@ def _ragged_dot(xs, w, group_sizes):
     return out
 
 
+def _rows_at(src, index, keep):
+    """Rows of `src` (m, D) at `index`, zeros where `keep` is False."""
+    return src.index_select(0, index).masked_fill_(~keep[:, None], 0)
+
+
+class _Dispatch(torch.autograd.Function):
+    """The capacity path's dispatch: token rows `xf` (n, D) into the E x C
+    slots (E * C, D), slot s holding token `slot_row[s] // top_k` and
+    zeros where `slot_row[s]` is n * top_k.  Backward: each (token, k)
+    row's slot gradient (`slot_of_row`, zeros where not `ok`), summed over
+    top_k in float32.  Both ways a gather: nothing accumulates."""
+
+    @staticmethod
+    def forward(ctx, xf, slot_row, slot_of_row, ok, top_k):
+        ctx.save_for_backward(slot_of_row, ok)
+        ctx.top_k = top_k
+        # a row of zeros after the n tokens, which the empty slots' n * top_k
+        # // top_k reads: cheaper than masking E x C rows after the gather
+        pad = xf.new_zeros((1, xf.shape[1]))
+        return torch.cat([xf, pad]).index_select(0, slot_row // top_k)
+
+    @staticmethod
+    def backward(ctx, g):
+        slot_of_row, ok = ctx.saved_tensors
+        rows = _rows_at(g, slot_of_row, ok)
+        gx = torch.sum(rows.view(-1, ctx.top_k, g.shape[1]), dim=1,
+                       dtype=F32)
+        return gx.to(g.dtype), None, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """The mirror of `_Dispatch`: the slots' rows `y_buf` (E * C, D) back
+    to the (token, k) rows (n * top_k, D), row r the slot
+    `slot_of_row[r]` and zeros where not `ok`.  Backward: each slot's
+    row gradient at `slot_row`, zeros at an empty slot."""
+
+    @staticmethod
+    def forward(ctx, y_buf, slot_row, slot_of_row, ok):
+        ctx.save_for_backward(slot_row)
+        return _rows_at(y_buf, slot_of_row, ok)
+
+    @staticmethod
+    def backward(ctx, g):
+        slot_row, = ctx.saved_tensors
+        rows = g.shape[0]
+        # masked, not padded: a padded copy of g would hold n * top_k more
+        # rows at the backward's peak
+        return _rows_at(g, torch.clamp_max(slot_row, rows - 1),
+                        slot_row < rows), None, None, None
+
+
 def tp_slice(params, mesh, tp_axis: str = "model"):
     """The MoE weights cut to this rank's d_ff slice over `tp_axis` (the
     reference's in_specs P(None, None, tp) for gate / up, P(None, tp, None)
@@ -370,10 +425,10 @@ def moe_ffn(params, x, *, top_k: int, mesh=None, dp_axes=("pod", "data"),
     C comes from each rank's own token count, so with more than one data
     rank other tokens drop than on one device, as in the reference.
 
-    impl='capacity' (default): GShard-style fixed-capacity scatter/gather
-    dispatch + batched expert GEMMs; tokens beyond an expert's capacity are
-    dropped. A token's rank inside its expert comes from a stable argsort,
-    as the reference's `jnp.argsort`, so the same tokens drop.
+    impl='capacity' (default): GShard-style fixed-capacity dispatch into
+    E x C slots + batched expert GEMMs; tokens beyond an expert's capacity
+    are dropped. A token's rank inside its expert comes from a stable
+    argsort, as the reference's `jnp.argsort`, so the same tokens drop.
     `kernels=True` runs the three expert GEMMs through the CUDA kernel
     (`repro_torch.kernels.moe_gemm`).
     impl='ragged': sort + grouped GEMM (a loop over experts in place of
@@ -399,10 +454,19 @@ def moe_local(params, x, *, top_k: int, mesh=None, dp=(),
     over `tp_axis` in bf16 after rounding (`reduce_from`); the tokens and
     the routing weights enter the d_ff-split work through `copy_to`, so
     their gradients sum over `tp_axis`; `aux` is averaged over `dp`.
-    Returns (this rank's rows of the output, aux).  While a profiler
-    records, the capacity path counts its routed rows (`moe.rows_routed`,
-    n x top_k) and the rows past an expert's capacity (`moe.rows_dropped`)
-    on the device channel."""
+    Returns (this rank's rows of the output, aux).
+
+    The capacity path gives each kept (token, k) row, `t * top_k + j`, the
+    slot `flat_e * C + rank`, which no other row has; a slot table
+    (`slot_row`, E x C entries, n x top_k at an empty slot) comes from one
+    scatter of the row ids, without accumulation.  The dispatch gathers
+    the token rows into the slots (zeros at empty slots) and the combine
+    gathers each kept row's slot back (zeros for a dropped row), each the
+    other's backward (`_Dispatch`, `_Combine`); every filled slot holds
+    exactly its row, as the reference's `.at[].add` onto zeros gives.
+    While a profiler records, it counts its routed rows (`moe.rows_routed`,
+    n x top_k), the rows past an expert's capacity (`moe.rows_dropped`)
+    and its slots (`moe.slots`, E x C) on the device channel."""
     tp = tp_axis if mesh is not None and tp_axis in mesh.axis_names \
         else None
     B, S, D = x.shape
@@ -442,14 +506,19 @@ def moe_local(params, x, *, top_k: int, mesh=None, dp=(),
         tr = device_tracer()
         tr.count("moe.rows_routed", n * top_k)
         tr.count("moe.rows_dropped", lambda: (~ok).sum())
-        rank_c = torch.clamp_max(rank, C - 1)
-        tok = idx // top_k
-        contrib = torch.where(ok[:, None], xf[tok], 0)
-        buf = xf.new_zeros((E, C, D)).index_put_((flat_e, rank_c), contrib,
-                                                 accumulate=True)
+        tr.count("moe.slots", E * C)
+        # a kept row's slot is its own; the dropped rows all write the
+        # table's extra last entry, which is cut off
+        slot_of_row = flat_e * C + torch.clamp_max(rank, C - 1)
+        slot_row = torch.full((E * C + 1,), n * top_k, dtype=idx.dtype,
+                              device=x.device).scatter_(
+            0, torch.where(ok, slot_of_row, E * C), idx)[:E * C]
+        buf = _Dispatch.apply(xf, slot_row, slot_of_row, ok,
+                              top_k).view(E, C, D)
         h = F.silu(gemm(buf, wg)) * gemm(buf, wu)              # (E, C, F)
         y_buf = gemm(h, wd)
-        y = y_buf[flat_e, rank_c] * ok.to(y_buf.dtype)[:, None]
+        y = _Combine.apply(y_buf.reshape(E * C, D), slot_row, slot_of_row,
+                           ok)
         out = torch.sum((y.float() * w_slot[:, None]).reshape(n, top_k, D),
                         dim=1)
     elif impl == "ragged":

@@ -7,7 +7,7 @@ sites taken out of the code (`_StripSites`): tracing off adds no op, no
 kernel and no read-back.  Tokens, loss, parameters and moments are bit-identical on and
 off.  On, the profiler's events hold the spans a wave and a step make,
 nested as the sites lie, and the counters hold the prefill's positions
-and kept tokens and the MoE rows routed and dropped.
+and kept tokens and the MoE rows routed and dropped and its slots.
 """
 import __future__
 import ast
@@ -287,3 +287,28 @@ def test_moe_rows_dropped_on_one_set_of_experts(n):
     counters = DEVICE_TRACER.snapshot()["counters"]
     assert counters["moe.rows_routed"] == n * top_k
     assert counters["moe.rows_dropped"] == top_k * (n - C)
+
+
+@pytest.mark.parametrize("impl", ["capacity", "ragged"])
+def test_moe_slots_counted_once_a_capacity_call(impl):
+    """`moe.slots` adds E x C at each call of the capacity path (C from
+    that call's token count) and nothing on the ragged path."""
+    E, D, F, top_k, cf = 8, 16, 32, 2, 1.25
+    g = torch.Generator().manual_seed(0)
+    params = {"router": torch.randn(D, E, generator=g),
+              "gate": torch.randn(E, D, F, generator=g),
+              "up": torch.randn(E, D, F, generator=g),
+              "down": torch.randn(E, F, D, generator=g)}
+    sizes = (16, 64)
+    with _recording():
+        for n in sizes:
+            moe_local(params, torch.randn(1, n, D, generator=g),
+                      top_k=top_k, capacity_factor=cf, impl=impl)
+    counters = DEVICE_TRACER.snapshot()["counters"]
+    if impl == "ragged":
+        assert "moe.slots" not in counters
+        return
+    assert counters["moe.slots"] == sum(
+        E * max(8, int(np.ceil(n * top_k * cf / E))) for n in sizes)
+    kept = counters["moe.rows_routed"] - counters["moe.rows_dropped"]
+    assert 0 < kept <= counters["moe.slots"]

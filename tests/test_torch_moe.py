@@ -10,15 +10,23 @@ load-balance aux loss at 1e-6.  A capacity factor of 0.5 makes experts
 overflow, so the same tokens must be dropped: the stable rank within an
 expert decides which.  The GEMM sweep is `tests/test_kernels.py:53-67` at
 its tolerances (float32 1e-4, bfloat16 5e-2).
+
+The capacity path's slot-table dispatch and combine against a test-local
+oracle, the accumulating scatter they replaced (`_accumulating_moe`, the
+reference's `.at[].add` onto zeros): the forward equal bit for bit, the
+gradients to the order of the top_k sum, and no accumulating op on rows.
 """
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from _torch_inputs import TOL, normal
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.kernels import ops as ref_ops
 from repro.launch.mesh import compat_make_mesh, compat_set_mesh
@@ -148,3 +156,160 @@ def test_moe_slot_counts_equal_bincount(monkeypatch, impl):
     assert torch.equal(aux, 8 * torch.sum(frac * probs.mean(dim=0)))
     assert len(groups) == (3 if impl == "ragged" else 0)
     assert all(torch.equal(g, counts) for g in groups)
+
+
+def _accumulating_moe(params, x, *, top_k, capacity_factor):
+    """The capacity path as it was before the slot table: every (token, k)
+    row scattered with `index_put_(accumulate=True)` onto its expert slot,
+    a dropped row clamped onto slot C - 1 as a row of zeros; the combine
+    an advanced-index gather, whose backward accumulates the same way."""
+    B, S, D = x.shape
+    E = params["router"].shape[1]
+    n = B * S
+    xf = x.reshape(n, D)
+    probs = torch.softmax(xf.float() @ params["router"], dim=-1)
+    topv, topi = torch.topk(probs, top_k, dim=-1)
+    topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+    flat_e = topi.reshape(-1)
+    group_sizes = torch.zeros(E, dtype=torch.int64).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    w_slot = topv.reshape(-1).float()
+    C = max(8, int(math.ceil(n * top_k * capacity_factor / E)))
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    idx = torch.arange(n * top_k)
+    is_start = torch.cat([torch.ones(1, dtype=torch.bool),
+                          sorted_e[1:] != sorted_e[:-1]])
+    group_start = torch.cummax(torch.where(is_start, idx, 0), 0).values
+    rank = torch.empty_like(flat_e)
+    rank[order] = idx - group_start
+    ok = rank < C
+    rank_c = torch.clamp_max(rank, C - 1)
+    contrib = torch.where(ok[:, None], xf[idx // top_k], 0)
+    buf = xf.new_zeros((E, C, D)).index_put_((flat_e, rank_c), contrib,
+                                             accumulate=True)
+    gemm = functools.partial(torch.einsum, "ecd,edf->ecf")
+    y_buf = gemm(F.silu(gemm(buf, params["gate"])) *
+                 gemm(buf, params["up"]), params["down"])
+    y = y_buf[flat_e, rank_c] * ok.to(y_buf.dtype)[:, None]
+    out = torch.sum((y.float() * w_slot[:, None]).reshape(n, top_k, D),
+                    dim=1)
+    if "shared" in params:
+        sp = params["shared"]
+        hs = F.silu(xf @ sp["gate"]) * (xf @ sp["up"])
+        out = out + (hs @ sp["down"]).float()
+    aux = E * torch.sum(group_sizes.float() / (n * top_k) *
+                        probs.mean(dim=0))
+    return out.to(x.dtype).reshape(B, S, D), aux, int((~ok).sum()), C
+
+
+def _dispatch_case(case, dtype):
+    """(params, x, top_k, cf) of a named case: capacity factors 1.25 and
+    0.5 on varied tokens; one token repeated 64 times (its two experts
+    hold 64 rows each against C at its floor of 8); and one token
+    repeated with top_k 1, every row to one expert."""
+    _, p = _carried(dtype)
+    td = getattr(torch, dtype)
+    if case in ("cf1.25", "cf0.5"):
+        x = torch.as_tensor(normal((4, 16, 32), 2))
+        return p, x.to(td), 2, float(case[2:])
+    x = torch.as_tensor(normal((1, 1, 32), 5)).expand(2, 32, 32)
+    if case == "floor":
+        return p, x.to(td), 2, 0.5
+    return p, x.to(td), 1, 1.25
+
+
+CASES = ["cf1.25", "cf0.5", "floor", "one_expert"]
+LEAVES = ("router", "gate", "up", "down")
+
+
+def _grads(fn, p, x):
+    """`fn`'s output, aux and the gradients of a fixed projection of both
+    with respect to x and the router and expert weights."""
+    p = {k: (v.detach().clone().requires_grad_(True) if k in LEAVES else v)
+         for k, v in p.items()}
+    x = x.detach().clone().requires_grad_(True)
+    out, aux = fn(p, x)[:2]
+    g = torch.Generator().manual_seed(9)
+    proj = torch.randn(out.shape, generator=g).to(out.dtype)
+    (torch.sum(out.float() * proj.float()) + aux).backward()
+    return out, aux, [x.grad] + [p[k].grad for k in LEAVES]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES)
+def test_slot_table_forward_equals_the_accumulating_scatter(case, dtype):
+    p, x, k, cf = _dispatch_case(case, dtype)
+    want, want_aux, dropped, C = _accumulating_moe(p, x, top_k=k,
+                                                   capacity_factor=cf)
+    got, aux = layers.moe_ffn(p, x, top_k=k, capacity_factor=cf)
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
+    n = x.shape[0] * x.shape[1]
+    if case == "floor":
+        assert C == 8 and dropped == k * (n - C)
+    if case == "one_expert":
+        assert dropped == n - C > n // 2
+    if case == "cf0.5":
+        assert dropped > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES)
+def test_slot_table_gradients_match_the_accumulating_scatter(case, dtype):
+    """x's gradient sums the top_k rows in float32 (the oracle in x's
+    dtype, one add a row), so float32 agrees to 1e-6 of each tensor's
+    largest magnitude and bfloat16 at the file's tolerance; the router's
+    and the experts' gradients follow the same slots."""
+    p, x, k, cf = _dispatch_case(case, dtype)
+    kw = dict(top_k=k, capacity_factor=cf)
+    out, aux, got = _grads(lambda q, y: layers.moe_ffn(q, y, **kw), p, x)
+    want_out, want_aux, want = _grads(
+        lambda q, y: _accumulating_moe(q, y, **kw), p, x)
+    assert torch.equal(out, want_out) and torch.equal(aux, want_aux)
+    for name, a, b in zip(("x",) + LEAVES, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if dtype == "float32":
+            scale = float(b.abs().max())
+            np.testing.assert_allclose(_np(a), _np(b), rtol=1e-6,
+                                       atol=1e-6 * scale, err_msg=name)
+        else:
+            np.testing.assert_allclose(_np(a), _np(b), **TOL[dtype],
+                                       err_msg=name)
+
+
+class _Accumulations(TorchDispatchMode):
+    """The accumulating scatters dispatched onto tensors of two or more
+    dimensions (rows): `index_put` with accumulate, `index_add`,
+    `scatter_add`, `scatter_reduce`."""
+
+    def __init__(self):
+        super().__init__()
+        self.found = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.overloadpacket.__name__
+        accumulates = (
+            name in ("index_add", "index_add_", "scatter_add",
+                     "scatter_add_", "scatter_reduce", "scatter_reduce_")
+            or (name in ("index_put", "index_put_", "_index_put_impl_")
+                and (args[3] if len(args) > 3
+                     else kwargs.get("accumulate", False))))
+        if accumulates and args[0].dim() >= 2:
+            self.found.append((name, tuple(args[0].shape)))
+        return func(*args, **kwargs)
+
+
+@pytest.mark.parametrize("case", ["cf1.25", "floor"])
+def test_capacity_path_accumulates_no_rows(case):
+    """Forward and backward of the capacity path dispatch no accumulating
+    scatter onto rows (the per-expert counts' `index_add_` is over a 1-D
+    tensor); the oracle, run the same way, is caught."""
+    p, x, k, cf = _dispatch_case(case, "float32")
+    kw = dict(top_k=k, capacity_factor=cf)
+    with _Accumulations() as mode:
+        _grads(lambda q, y: layers.moe_ffn(q, y, **kw), p, x)
+    assert mode.found == []
+    with _Accumulations() as oracle:
+        _grads(lambda q, y: _accumulating_moe(q, y, **kw), p, x)
+    assert {name for name, _ in oracle.found} >= {"index_put_"}
