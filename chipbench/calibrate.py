@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The readings that the correctness limits are set from, on the card, at
-a cell's own size, many seeds in one process:
+a cell's own size, many seeds in one process (a cell over several cards:
+one set of ranks a seed):
 
     python3 chipbench/calibrate.py --workload <name> --seeds 1,2,3 \
         [--control-seeds 1,2,3] [--fault-seeds 1,2,3] [--seconds 3]
@@ -39,12 +40,40 @@ def half_batch(zoo):
     return loss
 
 
-def serve_readings(cell, seed, seconds, control, device):
+def serve_on_rank(cell, seed, seconds, traced, device, t_start, mesh,
+                  control=False):
+    """A serving cell's readings on one rank (rank 0's; None on the
+    others of a mesh)."""
     from harness import serve
-    program = serve.Program(cell, seed, device, False)
-    run = program.window(seconds, time.perf_counter())
+    from harness.cell_run import across_ranks
+    program = serve.Program(cell, seed, device, traced, mesh)
+    run = program.window(seconds, t_start)
     program.close()
-    return serve.readings(cell, seed, run, device, control=control)
+    devices = [device] if mesh is None else across_ranks(run, device)
+    if devices is None:
+        return None
+    return serve.readings(cell, seed, run, devices, control=control)
+
+
+def serve_readings(cell, seed, seconds, control, device):
+    """The readings of a short window at the cell's load; a cell with a
+    `mesh` runs in its ranks (`harness/ranks.py`), one set a seed."""
+    if not cell.config.get("mesh"):
+        return serve_on_rank(cell, seed, seconds, False, device,
+                             time.perf_counter(), None, control)
+    import functools
+
+    import torch
+
+    from harness import ranks
+    code, got = ranks.launch(
+        cell, seed, seconds, False, time.perf_counter(),
+        device_type=torch.device(device).type,
+        body=functools.partial(serve_on_rank, control=control))
+    if code:
+        raise RuntimeError(f"{cell.name}, seed {seed}: the ranks ended "
+                           f"with {code}")
+    return got
 
 
 def leaf_gaps(got: list, want: list) -> list:

@@ -15,6 +15,11 @@ class Run:
     waves: list = dataclasses.field(default_factory=list)   # serving
     steps: list = dataclasses.field(default_factory=list)   # training
     trace: object = None    # harness.trace.Trace of a traced run
+    # over several cards (harness/ranks.py): host seconds of each wave's
+    # broadcast of rank 0's go-ahead on this rank, and after the window
+    # every rank's busy seconds (peak_bytes is then the fullest card's)
+    lockstep_s: list = dataclasses.field(default_factory=list)
+    rank_busy_s: list = dataclasses.field(default_factory=list)
 
     def timed_waves(self) -> list:
         """The waves that ran outside the profiler."""

@@ -20,10 +20,22 @@ drawn from the seed, always with the wave that holds the longest prompt,
 is run through the plain reference over each left-padded prompt and the
 tokens fed back; for every served token, the amount by which the
 reference's logit of it lies below the reference's best logit.
+
+Over several cards (a configuration with a `mesh`; `harness/ranks.py`)
+every rank builds the engine with the mesh from its own blocks of the
+weights (`weights.rank_blocks`), deals the same prompts from the seed,
+and starts a wave when rank 0 says so.  The engine of the port cuts the
+whole tree it is given (`sharding.rules.shard_tree`); while it is built
+from blocks, `blocks_as_given` puts in its place a function that keeps
+them.  Rank 0 compares after the window: the reference draws the weights
+again and gets every card of the cell (`readings`' `devices`); a
+reference that defines `serve_logits_by_leaf` draws each piece itself
+(`weights.piece`) and may spread its layers over those cards.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import statistics
 import time
@@ -31,9 +43,9 @@ import time
 import numpy as np
 import torch
 
-from harness import spec
+from harness import ranks, spec
 from harness.device import free, peak_bytes, start_profiler, sync
-from harness.weights import model_weights, tensors
+from harness.weights import model_weights, piece, rank_blocks, tensors
 
 clock = time.perf_counter
 
@@ -119,28 +131,64 @@ class Hooks:
         return False
 
 
+@contextlib.contextmanager
+def blocks_as_given(mesh):
+    """While entered with a mesh, the engine keeps the tree it is given,
+    which holds this rank's blocks, instead of cutting it again."""
+    if mesh is None:
+        yield
+        return
+    from repro_torch.serve import engine
+    cut = engine.shard_tree
+    engine.shard_tree = lambda tree, shardings: tree
+    try:
+        yield
+    finally:
+        engine.shard_tree = cut
+
+
 class Program:
     """The engine of one run, built from the seed, warmed up on the cell's
-    own shapes."""
+    own shapes; with `mesh`, this rank's part of it."""
 
-    def __init__(self, cell, seed: int, device, traced: bool):
+    def __init__(self, cell, seed: int, device, traced: bool, mesh=None):
         from repro_torch.models import zoo
+        from repro_torch.models.transformer import param_shardings
         from repro_torch.serve.engine import ServeEngine
         self.cell, self.seed, self.device, self.traced = cell, seed, device, \
             traced
+        self.mesh, self.lockstep_s = mesh, []
         tr = cell.traffic
         self.arch = spec.arch_config(cell.config)
-        self.params = model_weights(cell.config, device)
-        self.engine = ServeEngine(self.arch, self.params,
-                                  batch_slots=tr["batch_slots"],
-                                  max_len=tr["prompt_len"] + tr["new_tokens"],
-                                  prompt_len=tr["prompt_len"], device=device)
+        if mesh is None:
+            self.params = model_weights(cell.config, device)
+        else:
+            self.params = rank_blocks(cell.config,
+                                      param_shardings(self.arch, mesh), device)
+        with blocks_as_given(mesh):
+            self.engine = ServeEngine(
+                self.arch, self.params, mesh=mesh,
+                batch_slots=tr["batch_slots"],
+                max_len=tr["prompt_len"] + tr["new_tokens"],
+                prompt_len=tr["prompt_len"], device=device)
         self.feed = Feed(tr, self.arch.vocab, seed)
         self.hooks = Hooks(zoo, device, traced)
         for _ in range(tr["warmup_waves"]):
             self.round()
+        if mesh is not None:    # the default group's first collective
+            ranks.agree(True, device)
         sync(device)
         self.hooks.prefill_s.clear()
+
+    def more(self, more: bool) -> bool:
+        """Whether another wave starts: this process's answer on one rank,
+        rank 0's on every rank of a mesh (one broadcast, timed)."""
+        if self.mesh is None:
+            return more
+        t = clock()
+        more = ranks.agree(more, self.device)
+        self.lockstep_s.append(clock() - t)
+        return more
 
     def round(self, profiled: bool = False) -> dict:
         from repro_torch.serve.engine import Request
@@ -178,12 +226,15 @@ class Program:
         waves, trace, prof = [], None, None
         t0 = clock()
         setup_s = t0 - t_start
-        while clock() - t0 < seconds or (self.traced and trace is None):
+        while self.more(clock() - t0 < seconds or
+                        (self.traced and trace is None)):
             i = len(waves)
             profiled = self.traced and \
                 tr["trace_from"] <= i < tr["trace_from"] + tr["trace_waves"]
             if profiled and prof is None:
                 prof = start_profiler()
+                if self.mesh is not None:   # every rank's profiler is on
+                    ranks.agree(True, self.device)
                 span = torch.profiler.record_function(WINDOW)
                 span.__enter__()
             waves.append(self.round(profiled))
@@ -197,7 +248,8 @@ class Program:
         t1 = clock()
         return Run(kind="serve", config=self.cell.config, traffic=tr,
                    setup_s=setup_s, window=(t0, t1), waves=waves,
-                   trace=trace, peak_bytes=peak_bytes(self.device))
+                   trace=trace, peak_bytes=peak_bytes(self.device),
+                   lockstep_s=self.lockstep_s)
 
     def close(self) -> None:
         del self.engine, self.params
@@ -223,10 +275,26 @@ def wave_tokens(wave: dict, prompt_len: int) -> np.ndarray:
                            out[:, :-1]], axis=1)
 
 
-def reference_logits(cell, params, wave, device, prec):
+def streamed(cell) -> bool:
+    """Whether the reference draws each piece of the weights itself: a
+    configuration with a `mesh` whose reference defines
+    `serve_logits_by_leaf`."""
+    return bool(cell.config.get("mesh")) and hasattr(
+        spec.reference(cell.config), "serve_logits_by_leaf")
+
+
+def reference_logits(cell, params, wave, devices, prec):
+    """The reference's logits of a wave; `params` the whole tree on
+    `devices[0]`, or None where the reference draws its pieces
+    (`serve_logits_by_leaf(config, draw, tokens, prompt_len, prec,
+    devices)`, `draw(path, device, layer)` as `weights.piece`)."""
     ref = spec.reference(cell.config)
     tokens = torch.as_tensor(wave_tokens(wave, cell.traffic["prompt_len"]),
-                             device=device)
+                             device=devices[0])
+    if params is None:
+        return ref.serve_logits_by_leaf(
+            cell.config, functools.partial(piece, cell.config), tokens,
+            cell.traffic["prompt_len"], prec, devices)
     return ref.serve_logits(cell.config, params, tokens,
                             cell.traffic["prompt_len"], prec)
 
@@ -238,23 +306,27 @@ def gaps(logits, tokens) -> torch.Tensor:
     return best - torch.gather(logits, -1, tokens[..., None])[..., 0]
 
 
-def readings(cell, seed: int, run, device, control: bool = False) -> dict:
+def readings(cell, seed: int, run, devices: list,
+             control: bool = False) -> dict:
     """The numbers compared, from the sampled waves: `served_gap`, the
     widest gap of a served token, and `served_gap_mean`, the mean gap over
     the sampled served tokens; with `control`, `control_gap` and
     `control_gap_mean`, the same of the token the float8 reference puts
-    first at each served position."""
+    first at each served position.  `devices` are the cell's (one a
+    rank); the reference works on the first, or where it draws its own
+    pieces, on all of them."""
     from reference import common
     common.no_tf32()
     waves = sample_waves(run.waves, seed, cell.traffic["check_waves"])
-    params = model_weights(cell.config, device)
+    params = None if streamed(cell) else model_weights(cell.config,
+                                                       devices[0])
     served, low = [], []
     for w in waves:
-        logits = reference_logits(cell, params, w, device, common.FLOAT32)
-        out = torch.as_tensor(np.asarray(w["out"]), device=device)
+        logits = reference_logits(cell, params, w, devices, common.FLOAT32)
+        out = torch.as_tensor(np.asarray(w["out"]), device=logits.device)
         served.append(gaps(logits, out).flatten())
         if control:
-            fp8 = reference_logits(cell, params, w, device,
+            fp8 = reference_logits(cell, params, w, devices,
                                    common.Precision("fp8"))
             low.append(gaps(logits, fp8.argmax(-1)).flatten())
             del fp8

@@ -6,6 +6,11 @@ file (`chipbench/traffic/<traffic>.json`), its correctness limits
 reference (`chipbench/reference/<reference>.py`).  A new cell, mix,
 configuration or metric is a new file and a new entry; nothing here
 changes.
+
+A configuration's optional `mesh` ({"data": d, "model": m}) lays its
+model out over d x m cards, one rank a card (`harness/ranks.py`); a cell
+of it asks for exactly that many `chips`.  Without the key a cell runs on
+one rank and asks for one chip.
 """
 from __future__ import annotations
 
@@ -13,7 +18,10 @@ import dataclasses
 import importlib
 import importlib.util
 import json
+import math
 from pathlib import Path
+
+MESH_AXES = ("data", "model")
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
@@ -38,6 +46,18 @@ def _reported(entries: list, workload: str) -> list:
     return [m for m in entries if workload in m.get("workloads", [workload])]
 
 
+def mesh_size(config: dict) -> int:
+    """The ranks of the configuration's `mesh` (1 without one)."""
+    mesh = config.get("mesh")
+    if mesh is None:
+        return 1
+    if not mesh or set(mesh) - set(MESH_AXES) or not all(
+            isinstance(n, int) and n >= 1 for n in mesh.values()):
+        raise ValueError(f"{config.get('name')}: mesh {mesh} is not a "
+                         f"positive size over {MESH_AXES}")
+    return math.prod(mesh.values())
+
+
 def cell(name: str, root: Path = ROOT) -> Cell:
     man = manifest(root)
     found = [w for w in man["workloads"] if w["name"] == name]
@@ -46,6 +66,11 @@ def cell(name: str, root: Path = ROOT) -> Cell:
     w = found[0]
     cfg_entry = [c for c in man["configs"] if c["name"] == w["config"]][0]
     config = json.loads((root / cfg_entry["file"]).read_text())
+    if w["chips"] != mesh_size(config):
+        raise ValueError(
+            f"{name} asks for {w['chips']} chips, but its configuration "
+            f"{w['config']} lays its model over {mesh_size(config)} "
+            f"(mesh {config.get('mesh', 'absent: one rank')})")
     traffic = json.loads(
         (root / "chipbench" / "traffic" / f"{w['traffic']}.json").read_text())
     limits = json.loads(

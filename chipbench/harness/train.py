@@ -66,7 +66,11 @@ def change_norms(params, config: dict, device) -> list:
 
 
 class Program:
-    def __init__(self, cell, seed: int, device, traced: bool):
+    def __init__(self, cell, seed: int, device, traced: bool, mesh=None):
+        if mesh is not None or cell.config.get("mesh"):
+            raise ValueError(
+                f"{cell.name}: training over several cards is not measured; "
+                "a training cell's configuration has no mesh")
         from repro_torch.train.train_step import (TrainStepConfig,
                                                   init_train_state,
                                                   make_train_step)

@@ -13,8 +13,13 @@ bfloat16.  Needed rows, not the capacity's slots: dropped or padded slots
 are not work.  At these shapes the FLOPs bound: 989 TFLOP/s (bf16 tensor
 cores), against 3.35 TB/s for the bytes; stated against the 700 W
 limit.  A run in which no kernel matches reads nothing: the kernel is
-then off the path, and `mfu.prefill` still bounds the whole prefill."""
+then off the path, and `mfu.prefill` still bounds the whole prefill.
+Over a configuration's `mesh` of n cards every rank does 1/n of the
+products (the batch split over "data", heads and d_ff over "model"), and
+rank 0's kernels are held against 1/n of the least time: each rank reads
+at least 1/n of the bytes, so the share is never overstated."""
 from harness.flops import HBM_BYTES_PER_S, PEAK_BF16
+from harness.spec import mesh_size
 from harness.trace import kernel_ns
 
 PATTERN = r"moe_gemm"
@@ -47,4 +52,4 @@ def read(run):
         return None
     bound = sum(least_seconds(run.config, sum(w["lengths"]))
                 for w in run.waves if w["profiled"])
-    return 100.0 * bound / (ns / 1e9)
+    return 100.0 * bound / mesh_size(run.config) / (ns / 1e9)

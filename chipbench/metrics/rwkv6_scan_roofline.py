@@ -14,8 +14,13 @@ the wave.  The bytes bound at these shapes: 3.35 TB/s, against the
 operations at 989 TFLOP/s (the card's fastest rate; a float32 recurrence
 on CUDA cores would take 67 TFLOP/s); stated against the 700 W limit.
 A run in which no kernel matches reads nothing: the kernel is then off
-the path, and `mfu.prefill` still bounds the whole prefill."""
+the path, and `mfu.prefill` still bounds the whole prefill.
+Over a configuration's `mesh` of n cards every rank does 1/n of the
+recurrences (the batch split over "data", the heads over "model"), and
+rank 0's kernels are held against 1/n of the least time: each rank reads
+at least 1/n of the bytes, so the share is never overstated."""
 from harness.flops import HBM_BYTES_PER_S, PEAK_BF16
+from harness.spec import mesh_size
 from harness.trace import kernel_ns
 
 PATTERN = r"rwkv6_scan"
@@ -47,4 +52,4 @@ def read(run):
         return None
     bound = sum(least_seconds(run.config, w["lengths"])
                 for w in run.waves if w["profiled"])
-    return 100.0 * bound / (ns / 1e9)
+    return 100.0 * bound / mesh_size(run.config) / (ns / 1e9)

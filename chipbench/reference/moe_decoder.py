@@ -39,12 +39,13 @@ def _leaf(shape, dtype="bfloat16", init="normal", scale=None):
 
 def _stack(tree, n):
     if "shape" in tree:
-        return dict(tree, shape=[n] + tree["shape"])
+        return dict(tree, shape=[n] + tree["shape"], stacked=True)
     return {k: _stack(v, n) for k, v in tree.items()}
 
 
 def param_layout(cfg: dict) -> dict:
-    """The parameter tree: name -> {shape, dtype, init, scale}."""
+    """The parameter tree: name -> {shape, dtype, init, scale}, and
+    `stacked` on a leaf whose first axis is the layer axis."""
     D, H, hd, V = cfg["d_model"], cfg["n_heads"], cfg["head_dim"], \
         cfg["vocab"]
     m = cfg["moe"]

@@ -48,7 +48,7 @@ def param_layout(cfg: dict) -> dict:
 
     def st(shape, **kw):
         leaf = _leaf(shape, **kw)
-        return dict(leaf, shape=[L] + leaf["shape"])
+        return dict(leaf, shape=[L] + leaf["shape"], stacked=True)
 
     mix = {f"mu_{c}": st((D,), init="uniform") for c in "rkvwg"}
     tm = dict(mix, **{n: st((D, D)) for n in ("Wr", "Wk", "Wv", "Wg")})

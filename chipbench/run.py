@@ -15,6 +15,12 @@ standard output is the result as one JSON object; the numbers compared,
 each beside its limit, are the last lines of standard error and the last
 key of the result.  Without a CUDA device, or with JAX or the JAX package
 loaded, the run prints no result and exits with a code other than 0.
+
+A cell whose configuration has a `mesh` runs in one process a card, rank
+r on `cuda:r` (`chipbench/harness/ranks.py`): this process starts the
+ranks, watches them, and prints rank 0's result once every rank has
+ended with 0; set-up is timed from this process's start, so it holds
+starting the ranks and joining their process group.
 """
 import time
 
@@ -74,8 +80,15 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {cell.chips} CUDA devices, "
               f"{torch.cuda.device_count()} found", file=sys.stderr)
         return 2
-    line = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                    torch.device("cuda", 0), T_START)
+    if cell.config.get("mesh"):
+        from harness import ranks
+        code, line = ranks.launch(cell, args.seed, args.seconds,
+                                  bool(args.trace), T_START)
+        if code:
+            return code
+    else:
+        line = run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                        torch.device("cuda", 0), T_START)
     bad = forbidden_modules()
     if bad:
         print(f"loaded in the measured process: {', '.join(bad)}",

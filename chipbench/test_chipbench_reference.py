@@ -52,7 +52,8 @@ def test_served_logits_match_the_program(name):
         zoo.prefill, zoo.decode_step = saved
     got = torch.stack(caught, 1)
     wave = {"prompts": prompts, "out": [r.out_tokens for r in reqs]}
-    want = serve.reference_logits(cell, params, wave, "cpu", common.FLOAT32)
+    want = serve.reference_logits(cell, params, wave, ["cpu"],
+                                  common.FLOAT32)
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, rtol=0, atol=2e-4)
     assert float(serve.gaps(want, torch.as_tensor(wave["out"])).max()) \
