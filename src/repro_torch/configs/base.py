@@ -2,7 +2,11 @@
 assigned input-shape set (train_4k / prefill_32k / decode_32k / long_500k).
 
 The JAX package's `repro/configs/base.py` with the working type as a torch
-dtype (`torch.bfloat16`); every other field is the reference's.
+dtype (`torch.bfloat16`); every other field is the reference's, but for
+`rope_scaling` and the optional keys of `mla` and `moe` below, which the
+port alone reads (the published DeepSeek-V2's low-rank queries, YaRN
+and group-limited routing); left out, every path computes what the
+reference's does.
 """
 from __future__ import annotations
 
@@ -43,14 +47,21 @@ class ArchConfig:
     ffn: str = "glu"                 # glu | gelu | moe | rwkv_cm | none
     rope: str = "rope"               # rope | mrope | none
     rope_theta: float = 1e4
+    rope_scaling: dict | None = None  # YaRN (type "yarn", factor, beta_fast,
+                                      # beta_slow, mscale, mscale_all_dim,
+                                      # original_max_position_embeddings)
     mrope_sections: tuple[int, ...] = (16, 24, 24)
     norm: str = "rms"                # rms | ln
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
     # family-specific sub-configs
     mla: dict | None = None          # kv_lora, qk_nope, qk_rope, v_dim
+                                     # [, q_lora: low-rank queries]
     moe: dict | None = None          # n_routed, top_k, n_shared, d_ff_expert,
-                                     # first_dense_layers, d_ff_dense
+                                     # first_dense_layers, d_ff_dense [,
+                                     # n_group, topk_group: group-limited
+                                     # routing; norm_topk (True),
+                                     # routed_scaling (1.0)]
     ssm: dict | None = None          # d_state, headdim, expand
     hybrid: dict | None = None       # attn_every (shared attention block)
     enc: dict | None = None          # enc_layers, enc_len (frame stub), cross=True

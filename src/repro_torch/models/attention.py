@@ -24,14 +24,14 @@ the output sums over "model" (`reduce_from`).  The caches keep every KV
 head (`zoo.cache_shardings`); a rank fills and reads only its range, a
 view, so the attention kernels take it as they take the whole cache.
 
-`mla_attention(tp=)` runs MLA on this rank's heads the same way: `wq`,
-`wk_b` and `wv_b` hold their columns and `wo` their rows, while `wkv_a`
-and `kv_norm` are whole, so every rank computes the same latent and rope
-key and fills the same latent cache; the absorbed decode runs on the
-local heads.
+`mla_attention(tp=)` runs MLA on this rank's heads the same way: `wq`
+(or with low-rank queries `wq_b`), `wk_b` and `wv_b` hold their columns
+and `wo` their rows, while `wkv_a` and `kv_norm` (and `wq_a`, `q_norm`)
+are whole, so every rank computes the same latent and rope key and fills
+the same latent cache; the absorbed decode runs on the local heads.
 
 `kernels=True` runs GQA's attention through the flash and decode attention
-kernels and MLA's `kv_norm` through the rmsnorm kernel.  MLA's prefill
+kernels and MLA's `kv_norm` and `q_norm` through the rmsnorm kernel.  MLA's prefill
 attention (q and k of D = qk_nope + qk_rope, v of D = v_dim) and its
 absorbed decode stay plain PyTorch on every device: in the reference they
 reach no Pallas kernel, and the flash kernel takes only k and v of one
@@ -45,7 +45,8 @@ import torch
 
 from repro_torch.models.layers import (NEG_INF, apply_mrope, apply_rope,
                                        blocked_attention, decode_attention,
-                                       decode_attention_kv_sharded, rmsnorm)
+                                       decode_attention_kv_sharded, rmsnorm,
+                                       yarn_mscale)
 from repro_torch.models.module import ParamSpec
 from repro_torch.sharding.collectives import copy_to, reduce_from, rows
 from repro_torch.sharding.rules import all_gather, batch_axes
@@ -209,10 +210,19 @@ def gqa_cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
 # ---------------------------------------------------------------------------
 
 def mla_specs(d_model: int, n_heads: int, qk_nope: int, qk_rope: int,
-              v_dim: int, kv_lora: int, dtype=torch.bfloat16):
+              v_dim: int, kv_lora: int, dtype=torch.bfloat16,
+              q_lora: int | None = None):
+    """MLA's parameters; `q_lora` projects the queries through a latent of
+    that width (`wq_a`, RMSNorm `q_norm`, `wq_b`) in place of `wq`."""
+    q_out = n_heads * (qk_nope + qk_rope)
+    if q_lora:
+        q = {"wq_a": ParamSpec((d_model, q_lora), dtype, ("embed", None)),
+             "q_norm": ParamSpec((q_lora,), dtype, (None,), init="ones"),
+             "wq_b": ParamSpec((q_lora, q_out), dtype, (None, "heads"))}
+    else:
+        q = {"wq": ParamSpec((d_model, q_out), dtype, ("embed", "heads"))}
     return {
-        "wq": ParamSpec((d_model, n_heads * (qk_nope + qk_rope)), dtype,
-                        ("embed", "heads")),
+        **q,
         "wkv_a": ParamSpec((d_model, kv_lora + qk_rope), dtype, ("embed", None)),
         "kv_norm": ParamSpec((kv_lora,), dtype, (None,), init="ones"),
         "wk_b": ParamSpec((kv_lora, n_heads * qk_nope), dtype, (None, "heads")),
@@ -221,23 +231,49 @@ def mla_specs(d_model: int, n_heads: int, qk_nope: int, qk_rope: int,
     }
 
 
+def mla_temperature(rope_scaling: dict | None) -> float:
+    """The factor YaRN puts on MLA's scores beside (qk_nope + qk_rope) **
+    -1/2: m(factor, mscale_all_dim) squared, 1 without `rope_scaling` or
+    its `mscale_all_dim`.
+
+        >>> round(mla_temperature({"type": "yarn", "factor": 40,
+        ...                        "mscale_all_dim": 0.707}), 4)
+        1.5896
+    """
+    if not rope_scaling or not rope_scaling.get("mscale_all_dim"):
+        return 1.0
+    return yarn_mscale(rope_scaling["factor"],
+                       rope_scaling["mscale_all_dim"]) ** 2
+
+
 def mla_attention(params, x, positions, *, n_heads, qk_nope, qk_rope, v_dim,
-                  kv_lora, rope_theta=1e4, cache=None, cur_len=None,
-                  block_q=512, block_kv=1024, tp=None,
+                  kv_lora, rope_theta=1e4, rope_scaling=None, cache=None,
+                  cur_len=None, block_q=512, block_kv=1024, tp=None,
                   kernels: bool = False):
     """Returns (out, cache); cache = dict(ckv: (B,T,kv_lora),
     kr: (B,T,qk_rope)), written in place; cur_len: Python int (decode).
     `tp`: the heads split over its "model" ranks (module docstring).
+    Low-rank queries (`wq_a`, `q_norm`, `wq_b` in `params`, `mla_specs`'
+    `q_lora`): q = RMSNorm(x wq_a) wq_b.  `rope_scaling` (YaRN) turns the
+    rope parts of q and k by `layers.apply_rope`'s YaRN frequencies and
+    scales the scores by `mla_temperature`, in prefill and in the
+    absorbed decode alike.
 
-    `kernels` runs only `kv_norm` through the rmsnorm kernel (see the
-    module's docstring)."""
+    `kernels` runs only `kv_norm` and `q_norm` through the rmsnorm kernel
+    (see the module's docstring)."""
     B, S, D = x.shape
     if tp is not None:
         x = copy_to(x, tp, "model")
         n_heads //= tp.size("model")
-    q = (x @ params["wq"]).reshape(B, S, n_heads, qk_nope + qk_rope)
+    temp = mla_temperature(rope_scaling)
+    if "wq_a" in params:
+        q = rmsnorm(x @ params["wq_a"], params["q_norm"],
+                    kernels=kernels) @ params["wq_b"]
+    else:
+        q = x @ params["wq"]
+    q = q.reshape(B, S, n_heads, qk_nope + qk_rope)
     qn, qr = q[..., :qk_nope], q[..., qk_nope:]
-    qr = apply_rope(qr, positions, rope_theta)
+    qr = apply_rope(qr, positions, rope_theta, rope_scaling)
 
     kv = x @ params["wkv_a"]
     latent = kv[..., :kv_lora]          # a view with rows kv_lora + qk_rope
@@ -245,7 +281,7 @@ def mla_attention(params, x, positions, *, n_heads, qk_nope, qk_rope, v_dim,
         latent = latent.contiguous()    # laid end to end
     ckv = rmsnorm(latent, params["kv_norm"], kernels=kernels)   # (B,S,ckv)
     kr = apply_rope(kv[..., kv_lora:][:, :, None, :], positions,
-                    rope_theta)[:, :, 0, :]                     # (B,S,dr)
+                    rope_theta, rope_scaling)[:, :, 0, :]       # (B,S,dr)
 
     if cache is not None and S == 1:  # absorbed decode path
         cache["ckv"][:, cur_len:cur_len + 1] = ckv
@@ -258,6 +294,8 @@ def mla_attention(params, x, positions, *, n_heads, qk_nope, qk_rope, v_dim,
         s = (torch.einsum("bhk,btk->bht", q_c, ckv_c)
              + torch.einsum("bhr,btr->bht", qr[:, 0].float(), kr_c)
              ) / math.sqrt(qk_nope + qk_rope)
+        if temp != 1.0:
+            s = s * temp
         T = ckv_c.shape[1]
         valid = torch.arange(T, device=x.device) <= cur_len
         s = torch.where(valid[None, None, :], s, NEG_INF)
@@ -275,7 +313,9 @@ def mla_attention(params, x, positions, *, n_heads, qk_nope, qk_rope, v_dim,
     qf = torch.cat([qn, qr], dim=-1)
     kf = torch.cat([kn, kr_b], dim=-1)
     out = blocked_attention(qf, kf, vv, causal=True, block_q=block_q,
-                            block_kv=block_kv, kernels=False)
+                            block_kv=block_kv, kernels=False,
+                            scale=None if temp == 1.0 else
+                            temp / math.sqrt(qk_nope + qk_rope))
     if cache is not None:  # prefill fills the latent cache
         cache["ckv"][:, :S] = ckv
         cache["kr"][:, :S] = kr

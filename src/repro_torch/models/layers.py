@@ -1,8 +1,10 @@
 """Shared model layers, the dense part of the JAX package's
-`repro/models/layers.py`: norms, rotary embeddings (RoPE and Qwen2-VL's
-M-RoPE), blocked
+`repro/models/layers.py`: norms, rotary embeddings (RoPE, Qwen2-VL's
+M-RoPE and DeepSeek-V2's YaRN frequencies), blocked
 (FlashAttention-style memory-efficient) attention, decode attention and the
-GLU / GELU MLPs, and the fine-grained MoE FFN.  The MoE's capacity path
+GLU / GELU MLPs, and the fine-grained MoE FFN, whose router may keep
+DeepSeek-V2's groups of experts and scale its weights (`route`).  The
+MoE's capacity path
 moves rows between tokens and expert slots through a slot table
 (`moe_local`): the dispatch and the combine are gathers, each the other's
 backward, and nothing accumulates; while a profiler records, it counts
@@ -94,21 +96,77 @@ def rope_frequencies(head_dim: int, theta: float = 1e4, device=None):
                                          device=device) / head_dim))
 
 
-def _rotate(x, angles):
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature m(s, a) = 0.1 a ln s + 1 (1 for s <= 1).
+
+        >>> round(yarn_mscale(40, 0.707) ** 2, 4)
+        1.5896
+    """
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_range(head_dim: int, theta: float, scaling: dict) -> tuple:
+    """(low, high): the frequency slots YaRN's ramp runs between, the
+    correction dims of `beta_fast` (floored) and `beta_slow` (ceiled),
+    clamped to [0, head_dim - 1].
+
+        >>> yarn_range(64, 1e4, {"beta_fast": 32, "beta_slow": 1,
+        ...                      "original_max_position_embeddings": 4096})
+        (10, 23)
+    """
+    L0 = scaling["original_max_position_embeddings"]
+
+    def corr(rotations):
+        return head_dim * math.log(L0 / (rotations * 2 * math.pi)) / \
+            (2 * math.log(theta))
+    low = math.floor(corr(scaling["beta_fast"]))
+    high = math.ceil(corr(scaling["beta_slow"]))
+    return max(low, 0), min(high, head_dim - 1)
+
+
+def yarn_frequencies(head_dim: int, theta: float, scaling: dict,
+                     device=None):
+    """YaRN's inverse frequencies (DeepSeek-V2's rotary embedding): the
+    plain ones (`rope_frequencies`) below slot `low`, those divided by
+    `factor` above `high`, a linear ramp between (`yarn_range`)."""
+    extra = rope_frequencies(head_dim, theta, device)
+    low, high = yarn_range(head_dim, theta, scaling)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=F32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    return extra / scaling["factor"] * ramp + extra * (1 - ramp)
+
+
+def _rotate(x, angles, mscale: float = 1.0):
     """Rotate the halves of x's last axis by `angles` (..., S, D/2), in
-    float32, one angle for every head."""
+    float32, one angle for every head; cos and sin times `mscale`."""
     cos = torch.cos(angles)[..., None, :]                       # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
+    if mscale != 1.0:
+        cos, sin = cos * mscale, sin * mscale
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
 
-def apply_rope(x, positions, theta: float = 1e4):
-    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+def apply_rope(x, positions, theta: float = 1e4, scaling: dict | None = None):
+    """x: (..., S, H, D); positions: broadcastable to (..., S).  `scaling`
+    (a config's `rope_scaling`, type "yarn") takes YaRN's frequencies
+    and scales cos and sin by m(s, mscale) / m(s, mscale_all_dim)."""
     d = x.shape[-1]
-    freqs = rope_frequencies(d, theta, x.device)                # (D/2,)
-    return _rotate(x, positions[..., None].to(F32) * freqs)     # (..., S, D/2)
+    if scaling is None:
+        freqs, mscale = rope_frequencies(d, theta, x.device), 1.0  # (D/2,)
+    else:
+        if scaling.get("type") != "yarn":
+            raise ValueError(f"unknown rope_scaling {scaling.get('type')!r}")
+        s = scaling["factor"]
+        freqs = yarn_frequencies(d, theta, scaling, x.device)
+        mscale = yarn_mscale(s, scaling.get("mscale", 1)) / \
+            yarn_mscale(s, scaling.get("mscale_all_dim", 1))
+    return _rotate(x, positions[..., None].to(F32) * freqs,     # (..., S, D/2)
+                   mscale)
 
 
 def apply_mrope(x, positions_thw, sections=(16, 24, 24), theta: float = 1e6):
@@ -134,12 +192,14 @@ def apply_mrope(x, positions_thw, sections=(16, 24, 24), theta: float = 1e6):
 # ---------------------------------------------------------------------------
 
 def blocked_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
-                      block_kv: int = 1024, kernels: bool = False):
+                      block_kv: int = 1024, kernels: bool = False,
+                      scale: float | None = None):
     """Online-softmax attention over KV blocks (O(S) memory).
 
     q: (B, S, Hq, D); k, v: (B, T, Hkv, D) with Hq % Hkv == 0.  (The
     reference's additive `bias` argument has no caller there and is left
-    out.)
+    out.)  `scale`: the scores' factor, 1 / sqrt(D) when None (MLA's YaRN
+    temperature; the flash kernel, which MLA does not take, ignores it).
     """
     if kernels:
         out = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
@@ -164,7 +224,8 @@ def blocked_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
         v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
         T += pad_k
     nq, nk = S // bq, T // bk
-    scale = 1.0 / math.sqrt(D)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
     dev = q.device
     qh = q.reshape(B, S, Hkv, G, D)
 
@@ -445,16 +506,49 @@ def moe_ffn(params, x, *, top_k: int, mesh=None, dp_axes=("pod", "data"),
     return all_gather(out, mesh, dp, 0), aux
 
 
+def route(probs, top_k: int, routing: dict | None = None):
+    """(weights, experts) of each token's top_k, both (n, top_k), from the
+    float32 router probabilities (n, E).  `routing` (a config's `moe`)
+    may hold DeepSeek-V2's group-limited greedy choice: with `n_group`,
+    a group of E / n_group experts scores its best probability, the
+    `topk_group` best groups are kept and the top_k come from their
+    experts alone.  The weights are renormalised to sum to 1 unless
+    `norm_topk` is False, then multiplied by `routed_scaling` (1).
+
+        >>> p = torch.tensor([[.30, .02, .25, .20, .01, .22]])
+        >>> w, e = route(p, 2, {"n_group": 3, "topk_group": 1,
+        ...                     "norm_topk": False, "routed_scaling": 2.0})
+        >>> e.tolist(), [round(v, 2) for v in w[0].tolist()]
+        ([[0, 1]], [0.6, 0.04])
+    """
+    routing = routing or {}
+    n_group = routing.get("n_group")
+    if n_group:
+        n, E = probs.shape
+        best = probs.view(n, n_group, E // n_group).amax(dim=-1)
+        keep = torch.zeros_like(best, dtype=torch.bool).scatter_(
+            1, torch.topk(best, routing["topk_group"], dim=-1).indices, True)
+        probs = probs.masked_fill(
+            ~keep.repeat_interleave(E // n_group, dim=1), 0.0)
+    topv, topi = torch.topk(probs, top_k, dim=-1)              # (n, k)
+    if routing.get("norm_topk", True):
+        topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+    scaling = routing.get("routed_scaling", 1.0)
+    return (topv if scaling == 1.0 else topv * scaling), topi
+
+
 def moe_local(params, x, *, top_k: int, mesh=None, dp=(),
               tp_axis: str = "model", impl: str = "capacity",
-              capacity_factor: float = 1.25, kernels: bool = False):
+              capacity_factor: float = 1.25, kernels: bool = False,
+              routing: dict | None = None):
     """`moe_ffn` on one rank's block (the reference's `local_fn`): `x` this
     rank's rows of a batch split over `dp`, the expert weights its d_ff
     slice over `tp_axis` (`tp_slice`).  The expert products' output sums
     over `tp_axis` in bf16 after rounding (`reduce_from`); the tokens and
     the routing weights enter the d_ff-split work through `copy_to`, so
     their gradients sum over `tp_axis`; `aux` is averaged over `dp`.
-    Returns (this rank's rows of the output, aux).
+    Returns (this rank's rows of the output, aux).  `routing`: see
+    `route` (every rank routes alike: the router and x are whole).
 
     The capacity path gives each kept (token, k) row, `t * top_k + j`, the
     slot `flat_e * C + rank`, which no other row has; a slot table
@@ -476,8 +570,7 @@ def moe_local(params, x, *, top_k: int, mesh=None, dp=(),
     xf = x.reshape(n, D)
     logits = xf.float() @ params["router"]                     # (n, E)
     probs = torch.softmax(logits, dim=-1)
-    topv, topi = torch.topk(probs, top_k, dim=-1)              # (n, k)
-    topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+    topv, topi = route(probs, top_k, routing)                  # (n, k)
     flat_e = topi.reshape(-1)                                  # (n*k,) token-major
     # per-expert slot counts by a static-shape scatter-add, as the
     # reference's `zeros((E,)).at[flat_e].add(1)` (`bincount`'s output

@@ -30,7 +30,8 @@ layer's gathered over the batch axes just before use
 (`collectives.gather_param`, inside the layer's checkpoint, so remat
 gathers again).  The blocks that `split_blocks` names keep their "model"
 split and run tensor-parallel, as GSPMD runs the reference's: GQA
-(`attention.heads_split`), MLA, Mamba2 and RWKV6's time mix on whole
+(`attention.heads_split`), MLA (with low-rank queries a kind of its own,
+"mla_lora", split by `wq_b`'s heads), Mamba2 and RWKV6's time mix on whole
 heads, the GLU / GELU FFNs and RWKV's channel mix on d_ff, zamba2's
 shared block as GQA and GLU; each is entered through `copy_to` and left
 through one `reduce_from`.  A leaf whole over "model" that feeds a split
@@ -107,7 +108,8 @@ def mixer_specs(cfg: ArchConfig):
     if cfg.mixer == "mla":
         m = cfg.mla
         return attn.mla_specs(cfg.d_model, cfg.n_heads, m["qk_nope"],
-                              m["qk_rope"], m["v_dim"], m["kv_lora"], cfg.dtype)
+                              m["qk_rope"], m["v_dim"], m["kv_lora"], cfg.dtype,
+                              q_lora=m.get("q_lora"))
     if cfg.mixer == "rwkv6":
         return rwkv_mod.rwkv6_specs(cfg.d_model, cfg.head_dim, cfg.d_ff,
                                     cfg.dtype)
@@ -183,8 +185,8 @@ def apply_mixer(cfg: ArchConfig, p, x, positions, *, mesh=None, cache=None,
         return attn.mla_attention(
             p, x, positions, n_heads=cfg.n_heads, qk_nope=m["qk_nope"],
             qk_rope=m["qk_rope"], v_dim=m["v_dim"], kv_lora=m["kv_lora"],
-            rope_theta=cfg.rope_theta, cache=cache, cur_len=cur_len, tp=tp,
-            kernels=kernels)
+            rope_theta=cfg.rope_theta, rope_scaling=cfg.rope_scaling,
+            cache=cache, cur_len=cur_len, tp=tp, kernels=kernels)
     if cfg.mixer == "rwkv6":
         state, last_tm = None, None
         if cache is not None:   # this rank's heads of the state (a copy)
@@ -260,7 +262,7 @@ def apply_layer(cfg: ArchConfig, p, x, positions, *, mesh=None, dp=(),
                     p["ffn"], h, top_k=cfg.moe["top_k"], mesh=mesh, dp=dp,
                     impl=cfg.moe.get("impl", "capacity"),
                     capacity_factor=cfg.moe.get("capacity_factor", 1.25),
-                    kernels=kernels)
+                    kernels=kernels, routing=cfg.moe)
             elif cfg.ffn == "gelu":
                 y = gelu_mlp(p["ffn"], h, tp=tp("ffn"))
             else:
@@ -390,6 +392,8 @@ BLOCK_KINDS = {
     "glu": {"gate", "up", "down"},
     "gelu": {"in", "in_b", "out", "out_b"},
     "mla": {"wq", "wkv_a", "kv_norm", "wk_b", "wv_b", "wo"},
+    "mla_lora": {"wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wk_b",
+                 "wv_b", "wo"},
     "mamba2": {"in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias",
                "norm", "out_proj"},
     "rwkv_tm": {"tm"},
@@ -406,6 +410,7 @@ PART_LEAVES = {
     "glu": frozenset(),
     "gelu": frozenset({"in_b"}),
     "mla": frozenset({"wkv_a", "kv_norm"}),
+    "mla_lora": frozenset({"wq_a", "q_norm", "wkv_a", "kv_norm"}),
     "mamba2": frozenset({"in_proj", "conv_w", "conv_b", "A_log", "D",
                          "dt_bias", "norm"}),
     "rwkv_tm": frozenset({"mu_r", "mu_k", "mu_v", "mu_w", "mu_g",
@@ -442,6 +447,8 @@ def _splits(cfg: ArchConfig, kind, block) -> bool:
         heads = s.get("expand", 2) * cfg.d_model // s["headdim"]
     elif kind == "rwkv_tm":
         w, dim, heads = block["tm"]["Wr"], 1, cfg.d_model // cfg.head_dim
+    elif kind == "mla_lora":                # `wq_b`'s columns
+        w, dim, heads = block["wq_b"], 1, cfg.n_heads
     else:                                   # gqa, mla: `wq`'s columns
         w, dim, heads = block["wq"], 1, cfg.n_heads
     if not _on_model(w, dim):

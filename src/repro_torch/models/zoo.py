@@ -190,9 +190,10 @@ def kernel_launches(cfg: ArchConfig, mesh=None) -> tuple[dict, dict]:
         norms = 3 * n + 1 - split_norms
         return ({"rmsnorm": norms, "rwkv6_scan": n}, {"rmsnorm": norms})
     moe = 3 * (n - cfg.moe["first_dense_layers"]) if cfg.ffn == "moe" else 0
-    if cfg.mixer == "mla":          # ln1, kv_norm, ln2; plain attention
-        return ({"rmsnorm": 3 * n + 1, "moe_gemm": moe},
-                {"rmsnorm": 3 * n + 1, "moe_gemm": moe})
+    if cfg.mixer == "mla":          # ln1, kv_norm[, q_norm], ln2; plain
+        norms = (4 if cfg.mla.get("q_lora") else 3) * n + 1    # attention
+        return ({"rmsnorm": norms, "moe_gemm": moe},
+                {"rmsnorm": norms, "moe_gemm": moe})
     return ({"rmsnorm": 2 * n + 1, "flash_attention": n, "moe_gemm": moe},
             {"rmsnorm": 2 * n + 1, "decode_attention": n, "moe_gemm": moe})
 

@@ -39,13 +39,17 @@ the parts:
 
 All of them are the identity, and skip every collective, along a mesh
 axis of one rank.  The collectives are `all_gather` and `all_reduce`,
-which both the NCCL and the gloo backend take.
+which both the NCCL and the gloo backend take.  While a profiler records,
+each all-reduce issued is a `tp.all_reduce` span on the device channel
+(`obs.realtime.device_tracer`) and counts once in `tp.allreduces` and by
+its tensor's bytes in `tp.allreduce_bytes`.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.obs.realtime import device_tracer
 from repro_torch.sharding.rules import Mesh, NamedSharding, all_gather
 
 
@@ -58,7 +62,11 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axes, op=dist.ReduceOp.SUM):
     if group is None:
         return x
     out = x.clone().contiguous()
-    dist.all_reduce(out, op=op, group=group)
+    tr = device_tracer()
+    with tr.span("tp.all_reduce"):
+        dist.all_reduce(out, op=op, group=group)
+    tr.count("tp.allreduces", 1)
+    tr.count("tp.allreduce_bytes", out.numel() * out.element_size())
     return out
 
 

@@ -760,3 +760,95 @@ def tp_collectives(rank, world, inputs):
                             C.rows(gw, mesh, "model").numpy()))
     del m
     return out
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2 at its published mechanisms (low-rank queries, YaRN,
+# group-limited routing), tensor-parallel
+# ---------------------------------------------------------------------------
+
+def _dsv2(inputs):
+    """(the ArchConfig of `inputs["cfg"]`, a dict of its fields with the
+    dtype's name; the (1, world) mesh's whole float32 parameters)."""
+    import torch
+
+    from repro_torch.configs.base import ArchConfig
+    fields = dict(inputs["cfg"], dtype=getattr(torch, inputs["cfg"]["dtype"]))
+    return ArchConfig(**fields), _params(inputs)
+
+
+@scenario
+def dsv2_serve(rank, world, inputs):
+    """`ServeEngine(mesh=)` on a (1, world) mesh over the whole parameters
+    it cuts itself, serving the prompts: every step's logits (prefill,
+    then each decode step through the cache), the served tokens and the
+    tensor-parallel blocks."""
+    import numpy as np
+
+    from repro_torch.models import zoo
+    from repro_torch.models.transformer import param_shardings
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg, params = _dsv2(inputs["dsv2"])
+    mesh = _mesh((1, world), ("data", "model"))
+    engine = ServeEngine(cfg, params, mesh=mesh, batch_slots=len(
+        inputs["dsv2"]["prompts"]), max_len=inputs["dsv2"]["max_len"],
+        prompt_len=inputs["dsv2"]["prompt_len"], device="cpu")
+    caught, saved = [], (zoo.prefill, zoo.decode_step)
+
+    def keep(fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            caught.append(_np(out[0]))
+            return out
+        return call
+    zoo.prefill, zoo.decode_step = keep(saved[0]), keep(saved[1])
+    try:
+        reqs = [Request(prompt=np.asarray(p), max_new_tokens=inputs["dsv2"][
+            "new_tokens"]) for p in inputs["dsv2"]["prompts"]]
+        engine.serve(reqs)
+    finally:
+        zoo.prefill, zoo.decode_step = saved
+    return {"logits": caught, "out": [list(r.out_tokens) for r in reqs],
+            "split": _tp_split(cfg, mesh, param_shardings(cfg, mesh))}
+
+
+@scenario
+def dsv2_grads(rank, world, inputs):
+    """`zoo.train_loss` (remat on) on a (1, world) mesh: the loss and the
+    whole gradients of the low-rank query leaves, with `PART_LEAVES` as it
+    is and with `wq_a` and `q_norm` taken out of the "mla_lora" kind."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import zoo
+    from repro_torch.models.module import tree_leaves, tree_unflatten
+    from repro_torch.sharding.rules import gather_tree, shard_tree
+    cfg, whole = _dsv2(inputs["dsv2"])
+    mesh = _mesh((1, world), ("data", "model"))
+    sh = tfm.param_shardings(cfg, mesh)
+    p = shard_tree(whole, sh)
+    batch = {k: _tensor(v) for k, v in inputs["dsv2"]["batch"].items()}
+    names = inputs["dsv2"]["grad_leaves"]
+    out = {}
+    parts = dict(tfm.PART_LEAVES)
+    for case, drop in (("summed", frozenset()),
+                       ("unsummed", frozenset({"wq_a", "q_norm"}))):
+        tfm.PART_LEAVES["mla_lora"] = parts["mla_lora"] - drop
+        try:
+            leaves = [x.detach().requires_grad_() for x in tree_leaves(p)]
+            loss = zoo.train_loss(cfg, tree_unflatten(p, leaves), batch,
+                                  mesh=mesh, remat=True)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        finally:
+            tfm.PART_LEAVES.update(parts)
+        g = gather_tree(tree_unflatten(p, list(grads)), sh)
+        out[case] = {"loss": float(loss.detach()),
+                     "grads": {n: _np(_at(g, n)) for n in names}}
+    return out
+
+
+def _at(tree, dotted: str):
+    for k in dotted.split("."):
+        tree = tree[k]
+    return tree
