@@ -30,10 +30,11 @@ the output's shape.  The counting rules are the reference walker's:
               bytes towards HBM
   attention   the bytes of every dot inside a `torch.einsum` whose
   tiles       equation matches `ATTENTION_EINSUM` (the reference's
-              pattern: the score and context products of
-              `layers.blocked_attention` and of the decode attention),
-              forward and backward; a fused attention kernel keeps these
-              tiles on chip, so the roofline's memory term subtracts them
+              pattern: the decode attention's score and context
+              products) or inside `layers.attention_dot` (those of
+              `layers.blocked_attention`), forward and backward; a fused
+              attention kernel keeps these tiles on chip, so the
+              roofline's memory term subtracts them
 
 `while_trip_counts` is always `{}`: the port's layer stacks, attention
 blocks and scan chunks are Python loops, unrolled in the run, so every op
@@ -63,6 +64,8 @@ import torch
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.models.layers import attention_dot
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -191,8 +194,8 @@ class _Dispatch(TorchDispatchMode):
 
 
 class _Functions(TorchFunctionMode):
-    """Tags the dots of attention einsums (an einsum's equation is gone by
-    the time its aten ops dispatch)."""
+    """Tags the dots of attention products: einsums by their equation
+    (gone by the time their aten ops dispatch) and `layers.attention_dot`."""
 
     def __init__(self, rec: "Recorder"):
         super().__init__()
@@ -200,8 +203,9 @@ class _Functions(TorchFunctionMode):
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func is not torch.einsum or not isinstance(args[0], str) or \
-                not ATTENTION_EINSUM.search(args[0]):
+        if func is not attention_dot and (
+                func is not torch.einsum or not isinstance(args[0], str) or
+                not ATTENTION_EINSUM.search(args[0])):
             return func(*args, **kwargs)
         self.rec._attn += 1
         try:
@@ -209,7 +213,7 @@ class _Functions(TorchFunctionMode):
         finally:
             self.rec._attn -= 1
         if out.requires_grad:
-            self.rec._tag_backward(out, args[1:])
+            self.rec._tag_backward(out, args)
         return out
 
 

@@ -14,7 +14,11 @@ Everything is pure-functional over param dicts produced from ParamSpec trees
 (see module.py). Attention math accumulates in fp32; weights/activations are
 bf16 by default. Mixed-precision products of the reference
 (`preferred_element_type=F32` on bf16 operands) upcast the operands to
-float32 first: a bf16 x bf16 product is exact in float32.
+float32 first: a bf16 x bf16 product is exact in float32.  On the card
+`matmul_f32` (the head's logits, the blocked attention's two products)
+runs them on tensor cores with bf16 operands and float32 sums and output;
+the blocked attention's causal path computes no block pair that the mask
+empties.
 
 `kernels=True` runs `rmsnorm`, `blocked_attention`, `decode_attention` and
 the expert products of `moe_ffn` through the port's hand-written kernels
@@ -39,6 +43,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -191,6 +196,51 @@ def apply_mrope(x, positions_thw, sections=(16, 24, 24), theta: float = 1e6):
 # (repro_torch.kernels.flash_attention) is its hand-written twin.
 # ---------------------------------------------------------------------------
 
+class _MatmulF32(torch.autograd.Function):
+    """bf16 ``a`` (..., n, K) against the rows of bf16 ``b`` (..., m, K),
+    float32 out (..., n, m): one `torch.mm` or, with a leading batch axis,
+    `torch.bmm` with `out_dtype=`, which have no derivative.  The backward
+    pass rounds the float32 output gradient to bf16 and runs bf16 products
+    with float32 sums, rounded once to bf16: the gradient of the
+    reference's einsum under the TPU's default precision (one bf16 pass a
+    product)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        mm = torch.bmm if a.dim() == 3 else torch.mm
+        return mm(a, b.mT, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = g @ b if ctx.needs_input_grad[0] else None
+        gb = g.mT @ a if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def matmul_f32(a, b):
+    """``a`` (n, K) or (batch, n, K) against the rows of ``b`` (m, K) or
+    (batch, m, K) -> float32 (..., n, m), as the reference's
+    `einsum(..., preferred_element_type=F32)`: bf16 operands, float32 sums,
+    no rounding of the output to bf16.  On the card one tensor-core product
+    with float32 output (`_MatmulF32`); elsewhere float32 operands, which
+    hold bf16 values exactly."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return _MatmulF32.apply(a, b)
+    return a.float() @ b.float().mT
+
+
+def attention_dot(a, b):
+    """`matmul_f32` for the blocked attention's two products, which a torch
+    function mode sees whole: the dry run's recorder (`analysis.hlo`)
+    counts their dots as attention tiles."""
+    if has_torch_function((a, b)):
+        return handle_torch_function(attention_dot, (a, b), a, b)
+    return matmul_f32(a, b)
+
+
 def blocked_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
                       block_kv: int = 1024, kernels: bool = False,
                       scale: float | None = None):
@@ -200,6 +250,16 @@ def blocked_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
     reference's additive `bias` argument has no caller there and is left
     out.)  `scale`: the scores' factor, 1 / sqrt(D) when None (MLA's YaRN
     temperature; the flash kernel, which MLA does not take, ignores it).
+
+    Both products run through `attention_dot` on head-major operands: keys
+    and values (B Hkv, T, D) once a call, a q block's G heads flattened into
+    its rows (B Hkv, G bq, D).  Causal (row i sees keys j <= i, both
+    counted from 0): a q block visits only the kv blocks that hold a key
+    its last row sees, and masks only those that cross the diagonal.  Both
+    are exact: block 0 makes every row's running max finite, so a skipped
+    block would add p = 0 with a correction of 1.  While a profiler
+    records, the pairs computed and skipped are counted
+    (`attn.block_pairs`, `attn.block_pairs_skipped`).
     """
     if kernels:
         out = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
@@ -227,34 +287,42 @@ def blocked_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     dev = q.device
-    qh = q.reshape(B, S, Hkv, G, D)
+    qh = q.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4)   # (B,Hkv,G,S,D)
+    kh = k.transpose(1, 2).reshape(B * Hkv, T, D)
+    vh = v.transpose(1, 2).reshape(B * Hkv, T, Dv)
 
-    outs = []
+    outs, pairs = [], 0
     for qi in range(nq):
-        q_blk = qh[:, qi * bq:(qi + 1) * bq].float()
-        qpos = qi * bq + torch.arange(bq, device=dev)
-        m = torch.full((B, Hkv, G, bq), NEG_INF, dtype=F32, device=dev)
-        l = torch.zeros((B, Hkv, G, bq), dtype=F32, device=dev)
-        acc = torch.zeros((B, Hkv, G, bq, Dv), dtype=F32, device=dev)
-        for kj in range(nk):
-            k_blk = k[:, kj * bk:(kj + 1) * bk]
-            v_blk = v[:, kj * bk:(kj + 1) * bk]
+        q_blk = qh[:, :, :, qi * bq:(qi + 1) * bq].reshape(B * Hkv, G * bq, D)
+        qpos = (qi * bq + torch.arange(bq, device=dev)).repeat(G)
+        m = torch.full((B * Hkv, G * bq), NEG_INF, dtype=F32, device=dev)
+        l = torch.zeros((B * Hkv, G * bq), dtype=F32, device=dev)
+        acc = torch.zeros((B * Hkv, G * bq, Dv), dtype=F32, device=dev)
+        # causal: the kv blocks that hold a key <= the block's last row
+        n_kv = min(nk, ((qi + 1) * bq + bk - 1) // bk) if causal else nk
+        pairs += n_kv
+        for kj in range(n_kv):
+            blk = slice(kj * bk, (kj + 1) * bk)
             kpos = kj * bk + torch.arange(bk, device=dev)
-            s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk,
-                             k_blk.float()) * scale
-            if pad_k:
-                s = torch.where(kpos[None, :] < T_orig, s, NEG_INF)
-            if causal:
-                s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+            # scaled and masked in place: no product saves its output
+            s = attention_dot(q_blk, kh[:, blk]).mul_(scale)
+            if pad_k and kj == nk - 1:
+                s.masked_fill_(kpos[None, :] >= T_orig, NEG_INF)
+            if causal and (kj + 1) * bk - 1 > qi * bq:   # on the diagonal
+                s.masked_fill_(qpos[:, None] < kpos[None, :], NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p.to(v_blk.dtype).float(), v_blk.float())
+            acc = acc * corr[..., None] + attention_dot(p.to(v.dtype),
+                                                        vh[:, blk].mT)
             m = m_new
-        out = acc / torch.clamp_min(l, 1e-30)[..., None]       # (B,Hkv,G,bq,D)
-        outs.append(torch.movedim(out, 3, 1).to(q.dtype))     # (B,bq,Hkv,G,D)
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]   # (B Hkv, G bq, Dv)
+        outs.append(out.reshape(B, Hkv, G, bq, Dv).permute(0, 3, 1, 2, 4)
+                    .to(q.dtype))                          # (B,bq,Hkv,G,Dv)
+    tr = device_tracer()
+    tr.count("attn.block_pairs", pairs)
+    tr.count("attn.block_pairs_skipped", nq * nk - pairs)
     out = torch.cat(outs, dim=1).reshape(B, S, Hq, Dv)
     return out[:, :S_orig] if pad_q else out
 

@@ -58,8 +58,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (gelu_mlp, gelu_mlp_specs, glu_mlp,
-                                       glu_mlp_specs, layernorm, moe_local,
-                                       moe_specs, rmsnorm)
+                                       glu_mlp_specs, layernorm, matmul_f32,
+                                       moe_local, moe_specs, rmsnorm)
 from repro_torch.models.module import ParamSpec, tree_map
 from repro_torch.obs.realtime import device_tracer
 from repro_torch.sharding.collectives import (copy_to, gather_param,
@@ -670,39 +670,11 @@ def decoder_forward(cfg: ArchConfig, params, tokens, *, mesh=None,
     return x, caches, aux[0] if aux else x.new_zeros((), dtype=F32)
 
 
-class _MatmulF32(torch.autograd.Function):
-    """bf16 ``a`` (n, D) times bf16 ``b`` (V, D) transposed, float32 out
-    (`torch.mm(..., out_dtype=)`, which has no derivative).  The backward
-    pass rounds the float32 output gradient to bf16 and runs bf16 products
-    with float32 sums, rounded once to bf16: the gradient of the
-    reference's einsum under the TPU's default precision (one bf16 pass a
-    product)."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
-        return torch.mm(a, b.t(), out_dtype=F32)
-
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        g = g.to(a.dtype)
-        ga = g @ b if ctx.needs_input_grad[0] else None
-        gb = g.t() @ a if ctx.needs_input_grad[1] else None
-        return ga, gb
-
-
 def logits_f32(x, head):
-    """``x`` (..., D) against ``head`` (V, D) -> float32 (..., V), as the
-    reference's `einsum(..., preferred_element_type=F32)`: bf16 operands,
-    float32 sums, no rounding of the output to bf16.  On the card one
-    product with float32 output (`_MatmulF32`); elsewhere float32
-    operands, which hold bf16 values exactly."""
-    flat = x.reshape(-1, x.shape[-1])
-    if flat.is_cuda and flat.dtype == head.dtype == torch.bfloat16:
-        out = _MatmulF32.apply(flat, head)
-    else:
-        out = flat.float() @ head.float().t()
+    """``x`` (..., D) against ``head`` (V, D) -> float32 (..., V):
+    `layers.matmul_f32`, as the reference's `einsum(...,
+    preferred_element_type=F32)`."""
+    out = matmul_f32(x.reshape(-1, x.shape[-1]), head)
     return out.reshape(*x.shape[:-1], head.shape[0])
 
 

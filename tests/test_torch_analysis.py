@@ -40,6 +40,7 @@ from repro_torch.analysis.roofline import (HBM_BW, ICI_BW, PEAK_FLOPS,
 from repro_torch.configs import ARCHS, SHAPES, reduce_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
+from repro_torch.models import layers
 from repro_torch.sharding.collectives import all_reduce
 from repro_torch.sharding.rules import Mesh, all_gather
 
@@ -67,6 +68,23 @@ def test_recorder_counts_python_loop_dot_flops():
     # operands and output of every dot, float32, towards HBM
     per_pair = 4 * (M * K + K * N + M * N) + 4 * (M * N + N * K + M * K)
     assert a.hbm_bytes == L * per_pair
+
+
+def test_recorder_tags_blocked_attention_products_as_tiles():
+    """Every product of `layers.blocked_attention` (`layers.attention_dot`)
+    is an attention tile, forward and backward: 32 rows, 2 query heads on
+    one KV head, D 8, Dv 4, blocks 8 x 16, so 6 causal pairs of which each
+    moves its scores (16 x 8 by 8 x 16) and its context (16 x 16 by 16 x 4)
+    in float32, and their four gradient products the same bytes again
+    twice."""
+    q = torch.ones(1, 32, 2, 8, requires_grad=True)
+    k = torch.ones(1, 32, 1, 8, requires_grad=True)
+    v = torch.ones(1, 32, 1, 4, requires_grad=True)
+    with hlo.Recorder() as rec:
+        out = layers.blocked_attention(q, k, v, block_q=8, block_kv=16)
+        out.sum().backward()
+    pair = 4 * (16 * 8 + 8 * 16 + 16 * 16) + 4 * (16 * 16 + 16 * 4 + 16 * 4)
+    assert rec.attn_tile_bytes == 3 * 6 * pair
 
 
 def test_recorder_counts_collective_ring_bytes_exactly():

@@ -6,10 +6,12 @@ machine with a card:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from _torch_inputs import DEEP_BF16, RTOL, TOL, normal, population, queues
 
 from repro_torch.api.session import ExplorationSession
@@ -39,7 +41,8 @@ from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels import wavefront as wfm
 from repro_torch.kernels.wavefront import serialize_prefix, wavefront_scan
-from repro_torch.models import encdec, zoo
+from repro_torch.models import encdec, layers, zoo
+from repro_torch.models.attention import mla_temperature
 from repro_torch.models.module import init_from_specs
 from repro_torch.models.transformer import logits_f32
 
@@ -897,3 +900,78 @@ def test_logits_f32_gradient_on_the_card(cuda):
     assert gx.dtype == gw.dtype == torch.bfloat16
     assert _rel(gx, fx) <= 1e-2 and _rel(gw, fw) <= 1e-2, \
         (_rel(gx, fx), _rel(gw, fw))
+
+
+# ---- the plain blocked attention on tensor cores ----------------------------
+
+# (B, S, Hq, Hkv, D, Dv, block_q, block_kv, scale): MLA's prefill on a card
+# of four (32 heads, qk 192, v 128, blocks 512 x 1024, the YaRN temperature
+# over sqrt(192): 6 of 8 block pairs), and GQA with 4 query heads a KV head,
+# S ragged against both blocks
+BLOCKED = {
+    "mla": (1, 2048, 32, 32, 192, 128, 512, 1024,
+            mla_temperature({"type": "yarn", "factor": 40,
+                             "mscale_all_dim": 0.707}) / math.sqrt(192)),
+    "gqa": (2, 1000, 16, 4, 128, 128, 256, 512, None),
+}
+
+
+class _Bmms(TorchDispatchMode):
+    """The operand dtypes of every `bmm` dispatched."""
+
+    def __init__(self):
+        super().__init__()
+        self.dtypes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket is torch.ops.aten.bmm:
+            self.dtypes.append((args[0].dtype, args[1].dtype))
+        return func(*args, **(kwargs or {}))
+
+
+def _blocked_inputs(cuda, name):
+    B, S, Hq, Hkv, D, Dv, bq, bk, scale = BLOCKED[name]
+    q, k, v = (_on(cuda, normal(shape, i), "bfloat16") for i, shape in
+               enumerate(((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, Dv))))
+    return (q, k, v), dict(block_q=bq, block_kv=bk, scale=scale)
+
+
+@pytest.mark.parametrize("name", sorted(BLOCKED))
+def test_blocked_attention_bf16_products_equal_float32_operands(cuda, name):
+    """On the card both products take bf16 operands (float32 sums and
+    output); the CPU computes the same function on float32 operands, which
+    hold the bf16 values exactly.  Only the order of sums differs.  Both
+    round p to bf16 before the second product and the output once, so
+    where the order of sums moves a value across a rounding boundary, an
+    output moves by up to a bf16 ulp of a value of v (rows that attend to
+    a few keys): at most 2^-8 of the largest magnitude, 1e-4 on average
+    (measured on an H100: 0.1-0.2% of the outputs differ, by at most
+    0.0039)."""
+    (q, k, v), kw = _blocked_inputs(cuda, name)
+    with _Bmms() as bmms:
+        got = layers.blocked_attention(q, k, v, **kw)
+    assert bmms.dtypes and set(bmms.dtypes) == {(torch.bfloat16,) * 2}
+    want = layers.blocked_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+    assert got.dtype == want.dtype == torch.bfloat16
+    got, want = got.cpu().float(), want.float()
+    mean = float((got - want).abs().mean() / want.abs().mean())
+    assert _rel(got, want) <= 2 ** -8 and mean <= 1e-4, \
+        (_rel(got, want), mean)
+
+
+@pytest.mark.parametrize("name", sorted(BLOCKED))
+def test_blocked_attention_gradient_on_the_card(cuda, name):
+    """The bf16 products' backward (`layers._MatmulF32`, the head's
+    too) against the float32-operand products' gradients: within bf16
+    rounding, 1e-2 of the largest magnitude."""
+    (q, k, v), kw = _blocked_inputs(cuda, name)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    out = layers.blocked_attention(*leaves, **kw)
+    g = _on(cuda, normal(out.shape, 7), "bfloat16")
+    grads = torch.autograd.grad(out, leaves, g)
+    floats = [t.detach().float().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(layers.blocked_attention(*floats, **kw),
+                               floats, g.float())
+    rel = [_rel(a, b) for a, b in zip(grads, want)]
+    assert all(a.dtype == torch.bfloat16 for a in grads)
+    assert max(rel) <= 1e-2, rel

@@ -181,8 +181,8 @@ def test_tracing_off_dispatches_no_op_of_its_own(run, monkeypatch):
     with _Ops() as off:
         RUNS[run](cfg)
     assert _strip_sites(monkeypatch) == [
-        "_ce", "_logits", "apply_layer", "decode_once", "make_train_step",
-        "moe_local", "prefill_step", "readback"]
+        "_ce", "_logits", "apply_layer", "blocked_attention", "decode_once",
+        "make_train_step", "moe_local", "prefill_step", "readback"]
     with _Ops() as removed:
         RUNS[run](cfg)
     assert off.ops == removed.ops

@@ -12,11 +12,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 from _torch_inputs import normal
 
 from repro.models import layers as ref
 
 from repro_torch.models import layers
+from repro_torch.obs.realtime import DEVICE_TRACER
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -53,22 +55,61 @@ def test_apply_rope(dtype, theta):
     _check(got, ref.apply_rope(jx, jnp.asarray(pos, jnp.int32), theta), dtype)
 
 
+def _geometry(S, Hq, Hkv, bq, bk, T=None, D=16, Dv=16, *, id=None):
+    return pytest.param(S, T or S, Hq, Hkv, D, Dv, bq, bk,
+                        id=id or f"{S}-{Hq}-{Hkv}-{bq}-{bk}")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S,Hq,Hkv,bq,bk", [
-    (40, 6, 2, 16, 16),     # GQA, ragged S against blocks of 16
-    (64, 4, 4, 16, 32),     # MHA, whole blocks
-    (24, 4, 1, 512, 1024),  # MQA, one block each way
+@pytest.mark.parametrize("S,T,Hq,Hkv,D,Dv,bq,bk", [
+    _geometry(40, 6, 2, 16, 16),     # GQA, ragged S against blocks of 16
+    _geometry(64, 4, 4, 16, 32),     # MHA, whole blocks
+    _geometry(24, 4, 1, 512, 1024),  # MQA, one block each way
+    # the causal skip: q blocks smaller than kv blocks, S ragged against
+    # both; larger; S != T either way (keys and rows both counted from 0)
+    _geometry(50, 4, 2, 8, 16, id="bq<bk-ragged"),
+    _geometry(44, 4, 2, 16, 8, id="bq>bk-ragged"),
+    _geometry(40, 4, 2, 8, 16, T=56, id="S<T"),
+    _geometry(56, 4, 2, 16, 8, T=40, id="S>T"),
+    # MLA-like: keys 24 wide, values 16, the scale given
+    _geometry(48, 4, 4, 16, 32, D=24, Dv=16, id="Dv<D-scaled"),
 ])
 @pytest.mark.parametrize("causal", [True, False])
-def test_blocked_attention(dtype, S, Hq, Hkv, bq, bk, causal):
-    jq, q = _pair(normal((2, S, Hq, 16), 4), dtype)
-    jk, k = _pair(normal((2, S, Hkv, 16), 5), dtype)
-    jv, v = _pair(normal((2, S, Hkv, 16), 6), dtype)
+def test_blocked_attention(dtype, S, T, Hq, Hkv, D, Dv, bq, bk, causal):
+    """The port's plain path against the reference's.  With D != Dv the
+    port takes `scale` = 2 / sqrt(D), the reference (which has no scale)
+    q doubled: a power of two, so both compute the same scores."""
+    jq, q = _pair(normal((2, S, Hq, D), 4), dtype)
+    jk, k = _pair(normal((2, T, Hkv, D), 5), dtype)
+    jv, v = _pair(normal((2, T, Hkv, Dv), 6), dtype)
+    scale = None if D == Dv else 2 / float(np.sqrt(D))
     got = layers.blocked_attention(q, k, v, causal=causal, block_q=bq,
-                                   block_kv=bk)
-    want = ref.blocked_attention(jq, jk, jv, causal=causal, block_q=bq,
-                                 block_kv=bk)
+                                   block_kv=bk, scale=scale)
+    want = ref.blocked_attention(jq if scale is None else jq * 2, jk, jv,
+                                 causal=causal, block_q=bq, block_kv=bk)
     _check(got, want, dtype)
+
+
+def test_blocked_attention_counts_the_pairs_it_skips():
+    """S = T = 64 in blocks of 8 x 16: 32 pairs, of which the causal mask
+    empties 12 (q block i sees kv blocks 0 .. ceil((i + 1) / 2) - 1); the
+    counters add up over calls while a profiler records."""
+    q, k, v = (torch.as_tensor(normal((1, 64, 2, 8), i)) for i in (1, 2, 3))
+    DEVICE_TRACER.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            layers.blocked_attention(q, k, v, block_q=8, block_kv=16)
+        counters = DEVICE_TRACER.snapshot()["counters"]
+        assert (counters["attn.block_pairs"],
+                counters["attn.block_pairs_skipped"]) == (20, 12)
+        with profile(activities=[ProfilerActivity.CPU]):
+            layers.blocked_attention(q, k, v, causal=False, block_q=8,
+                                     block_kv=16)
+        counters = DEVICE_TRACER.snapshot()["counters"]
+        assert (counters["attn.block_pairs"],
+                counters["attn.block_pairs_skipped"]) == (52, 12)
+    finally:
+        DEVICE_TRACER.reset()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
