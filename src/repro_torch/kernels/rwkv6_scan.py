@@ -33,7 +33,6 @@ from repro_torch.kernels.ref import rwkv6_scan_ref
 
 LOGW_MIN = -6.0  # per-step log-decay clamp (numerical guard, documented)
 MAX_L, MAX_K, SUB = 32, 64, 8   # the tiled kernel's kMaxL, kMaxK, kSub
-KERNELS = ("tiled", "old")
 
 
 def smem_bytes(K: int, V: int, L: int) -> int:
@@ -61,18 +60,14 @@ def variant(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 32,
-               initial_state: torch.Tensor | None = None,
-               kernel: str | None = None):
+               initial_state: torch.Tensor | None = None):
     """r, k, logw: (B,S,H,K); v: (B,S,H,V); u: (H,K); initial_state:
     float32 (B,H,K,V) or None (zeros) -> (o (B,S,H,V) in r's type, float32
     final state (B,H,K,V)).
 
     S must be a multiple of the chunk ``L = min(chunk, S)``, as in the
     reference.  On CUDA: r, k, v contiguous, float32 or bfloat16 of one
-    type; logw, u and the state float32 and contiguous.  ``kernel``
-    ("tiled" or "old") names the CUDA kernel instead of `variant`, to time
-    the old kernel beside the tiled one; "tiled" on a call that `variant`
-    sends to the old kernel raises."""
+    type; logw, u and the state float32 and contiguous."""
     if r.dim() != 4 or r.shape != k.shape or r.shape != logw.shape or \
             v.dim() != 4 or v.shape[:3] != r.shape[:3]:
         raise ValueError(f"shapes: r {tuple(r.shape)}, k {tuple(k.shape)}, "
@@ -106,12 +101,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("r, k, v, logw, u and initial_state must be "
                          "contiguous")
     route = variant(r, k, v, logw, chunk)
-    if kernel is None:
-        kernel = route
-    elif kernel not in KERNELS or (kernel, route) == ("tiled", "old"):
-        raise ValueError(f"kernel {kernel!r}: the {route} kernel takes this "
-                         f"call")
-    if kernel == "old" and smem_bytes(K, V, L) > SMEM_LIMIT:
+    if route == "old" and smem_bytes(K, V, L) > SMEM_LIMIT:
         raise ValueError(f"K={K}, V={V}, L={L} need more shared memory than "
                          f"a block has")
     if r.numel() == 0 or V == 0:
@@ -125,7 +115,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = lib.launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), s0, o.data_ptr(), s_out.data_ptr(), B, S, H, K, V, L,
-        code, int(kernel == "tiled"), index, stream_of(index))
+        code, int(route == "tiled"), index, stream_of(index))
     check(lib, err, "rwkv6_scan")
     rwkv6_scan.launches += 1
     return o, s_out

@@ -34,7 +34,6 @@ from repro_torch.kernels.ref import ssd_scan_ref
 
 
 MAX_L = MAX_N = 64      # the tiled kernel's kMaxL and kMaxN
-KERNELS = ("tiled", "old")
 
 
 def smem_bytes(P: int, N: int, L: int) -> int:
@@ -64,8 +63,7 @@ def variant(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 64,
-             initial_state: torch.Tensor | None = None,
-             kernel: str | None = None):
+             initial_state: torch.Tensor | None = None):
     """x: (B,S,H,P); dt: (B,S,H); A: (H,); Bm, Cm: (B,S,N) shared across
     heads; initial_state: float32 (B,H,P,N) or None (zeros) ->
     (y (B,S,H,P) in x's type, float32 final state (B,H,P,N)).
@@ -73,10 +71,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     S must be a multiple of the chunk ``L = min(chunk, S)``, as in the
     reference.  On CUDA: x, Bm and Cm float32 or bfloat16 of one type with
     their last axis contiguous (any other strides, so the model's slices of
-    its conv output pass without a copy); dt, A and the state float32.
-    ``kernel`` ("tiled" or "old") names the CUDA kernel instead of
-    `variant`, to time the old kernel beside the tiled one; "tiled" on a
-    call that `variant` sends to the old kernel raises."""
+    its conv output pass without a copy); dt, A and the state float32."""
     if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 3 or Bm.shape != Cm.shape:
         raise ValueError(f"shapes: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
                          f"B {tuple(Bm.shape)}, C {tuple(Cm.shape)}")
@@ -114,12 +109,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("x, B and C need a contiguous last axis; A and "
                          "initial_state must be contiguous")
     route = variant(x, Bm, Cm, chunk)
-    if kernel is None:
-        kernel = route
-    elif kernel not in KERNELS or (kernel, route) == ("tiled", "old"):
-        raise ValueError(f"kernel {kernel!r}: the {route} kernel takes this "
-                         f"call")
-    if kernel == "old" and smem_bytes(P, N, L) > SMEM_LIMIT:
+    if route == "old" and smem_bytes(P, N, L) > SMEM_LIMIT:
         raise ValueError(f"P={P}, N={N}, L={L} need more shared memory than "
                          f"a block has")
     if x.numel() == 0 or N == 0:
@@ -137,7 +127,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), s0, y.data_ptr(), s_out.data_ptr(),
         ctypes.addressof(strides), Bsz, S, H, P, N, L, code,
-        int(kernel == "tiled"), index,
+        int(route == "tiled"), index,
         stream_of(index))
     check(lib, err, "ssd_scan")
     ssd_scan.launches += 1

@@ -28,11 +28,12 @@ storages (each once; the step updates in place, so its outputs are its
 arguments), `temp_size_bytes`, the most bytes the run held alive at once
 beyond its arguments, and `generated_code_size_bytes` None (nothing is
 compiled).  `lower_s` is the fake run's seconds, `compile_s` 0.0.  The
-roofline's `xla_flops` is `FlopCounterMode`'s count over the same run,
-beside the recorder's.  Cells a config does not support are skipped by
-`cfg.supports_shape`.  Entry points run on "cuda" unless `device="cpu"`:
-fake tensors of that device, which take the device's branches of the
-program (the card's float32-output head product among them).
+roofline's `xla_flops` is `FlopCounterMode`'s count over the same run
+(`flop_counter`), beside the recorder's.  Cells a config does not
+support are skipped by `cfg.supports_shape`.  Entry points run on
+"cuda" unless `device="cpu"`: fake tensors of that device, which take
+the device's branches of the program (the card's float32-output head
+product among them).
 """
 from __future__ import annotations
 
@@ -93,13 +94,28 @@ def _cell_program(cfg, shape, mesh, step_cfg, dev):
     return serve_step, args if enc_out is None else args + (enc_out,)
 
 
+def _bmm_flop(a_shape, b_shape, *_, out_shape=None, **__) -> int:
+    """FLOPs of every overload of `aten.bmm`: torch's own formula takes the
+    third argument of `bmm.dtype` (`out_dtype=`, the card's bf16 products
+    with float32 sums in `layers.matmul_f32`) for the output's shape, and
+    raises."""
+    b, m, k = a_shape
+    return 2 * b * m * k * b_shape[-1]
+
+
+def flop_counter():
+    """`FlopCounterMode` with torch's formulas, `bmm.dtype` counted too."""
+    from torch.utils.flop_counter import FlopCounterMode
+    return FlopCounterMode(display=False,
+                           custom_mapping={torch.ops.aten.bmm: _bmm_flop})
+
+
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
                step_cfg: TrainStepConfig | None = None, mesh=None,
                device=None):
     """Run one cell on fake tensors; returns (its `Recorder`, the report
     dict), or (None, a skip report)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.utils.flop_counter import FlopCounterMode
     cfg = ARCHS[arch]
     shape = SHAPES[shape_name]
     ok, why = cfg.supports_shape(shape)
@@ -115,7 +131,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
     with FakeTensorMode():
         fn, args = _cell_program(cfg, shape, mesh, step_cfg, dev)
         arg_bytes = rec.exclude(args)
-        counter = FlopCounterMode(display=False)
+        counter = flop_counter()
         t0 = time.perf_counter()
         with counter, rec:
             out = fn(*args)

@@ -6,7 +6,9 @@ with the flags of the JAX package's `repro/launch/serve.py` plus `--device`:
 
 As in the reference, `--smoke` defaults to on (`action="store_true",
 default=True`), so the CLI always serves the reduced config; a full-width
-model is served through `ServeEngine` directly (see `chip_smoke.py`).
+model is served through `ServeEngine` directly (see the README's port
+section, and `tests/test_torch_cuda.py`, which serves each decoder at full
+width on the card).
 The engine runs on `launch.mesh.make_host_mesh()` (every rank of the
 initialised process group, or one rank without one), or on the (16, 16)
 production mesh under `--production-mesh`, which raises ValueError unless

@@ -6,6 +6,7 @@ machine with a card:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -14,9 +15,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from _torch_inputs import DEEP_BF16, RTOL, TOL, normal, population, queues
 
+from repro_torch.api import DesignSpace, GAConfig
 from repro_torch.api.session import ExplorationSession
 from repro_torch.configs import ARCHS, reduce_config
 from repro_torch.configs.paper_workloads import squeezenet
+from repro_torch.core import vectorized
 from repro_torch.core.vectorized import BatchedFitness
 from repro_torch.hw import catalog
 from repro_torch.hw.catalog import mc_hetero, mc_hom_tpu_chip4
@@ -43,10 +46,23 @@ from repro_torch.kernels import wavefront as wfm
 from repro_torch.kernels.wavefront import serialize_prefix, wavefront_scan
 from repro_torch.models import encdec, layers, zoo
 from repro_torch.models.attention import mla_temperature
-from repro_torch.models.module import init_from_specs
+from repro_torch.models.module import init_from_specs, tree_leaves
 from repro_torch.models.transformer import logits_f32
+from repro_torch.serve.engine import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
+
+_KERNELS = {"rmsnorm": rmsnorm_fwd, "flash_attention": flash_attention_fwd,
+            "decode_attention": decode_attention_fwd, "ssd_scan": ssd_scan,
+            "rwkv6_scan": rwkv6_scan, "moe_gemm": moe_gemm}
+_ALL_KERNELS = dict(_KERNELS, serialize_prefix=serialize_prefix,
+                    wavefront_scan=wavefront_scan)
+
+
+def _launches(before=None):
+    """Every kernel's launch count, or its launches since `before`."""
+    now = {k: fn.launches for k, fn in _ALL_KERNELS.items()}
+    return now if before is None else {k: now[k] - before[k] for k in now}
 
 
 @pytest.fixture(scope="module")
@@ -100,6 +116,7 @@ def test_fitness_kernel_path_matches_plain_and_cpu(cuda, arch):
                          contention="serialize").scores(pop)
     np.testing.assert_allclose(s_k, s_p, rtol=RTOL)
     np.testing.assert_allclose(s_k, s_c, rtol=RTOL)
+    assert np.all(np.isfinite(s_k)) and np.all(s_k > 0)
 
 
 FITNESS_ARCHS = ["mc_hetero", "mc_hom_tpu_chip4", "diana", "aimc_4x4",
@@ -144,9 +161,10 @@ def test_fused_route_launches_once_a_chunk(cuda):
     chunks = -(-len(pop) // fused.chunk_size(len(pop)))
     assert chunks == 2
     before = (wavefront_scan.launches, serialize_prefix.launches)
-    fused.scores(pop)
+    first = fused.scores(pop)
     assert (wavefront_scan.launches - before[0],
             serialize_prefix.launches - before[1]) == (chunks, 0)
+    assert np.array_equal(fused.scores(pop), first)     # run to run
 
 
 @pytest.mark.parametrize("arch", ["mc_hetero", "mc_hom_tpu_chip4", "diana"])
@@ -194,6 +212,160 @@ def test_wavefront_scan_refuses_what_the_kernel_does_not_take(cuda):
     backlog = {k: v for k, v in xs.items() if k != "on"}
     with pytest.raises(ValueError):
         wavefront_scan(g, backlog, st, **kw)
+
+
+# ---- Stream's exploration and the DSE runtime, the fitness on the card ----
+
+def _counted_chunks(monkeypatch):
+    """A list that gains (fitness, genomes, latency, energy) for each chunk
+    `BatchedFitness` scores while the test runs."""
+    chunks = []
+    score = BatchedFitness._score
+
+    def counted(self, genomes):
+        lat, en = score(self, genomes)
+        chunks.append((self, genomes, lat, en))
+        return lat, en
+
+    monkeypatch.setattr(BatchedFitness, "_score", counted)
+    return chunks
+
+
+def _hold_chunks_against_plain(chunks):
+    """Each chunk that went to `wavefront_scan`, scored again through the
+    plain loop of the same fitness on the same device: latency and energy
+    bit-equal, and no kernel launched."""
+    before = _launches()
+    for bf, genomes, lat, en in list(chunks):
+        assert bf.route == "fused"
+        plain = vectorized.get_batched_fitness(
+            bf.engine, priority=bf.priority, segment=bf.segment,
+            strict_layers=bf.strict_layers, use_kernel=False,
+            contention=bf.contention, device=bf.device)
+        assert plain.route == "plain"
+        p_lat, p_en = plain._score(genomes)
+        assert torch.equal(lat, p_lat) and torch.equal(en, p_en)
+    assert not any(_launches(before).values())
+
+
+def _content(record):
+    """A sweep record's stored fields but its wall time."""
+    d = record.to_dict()
+    d.pop("runtime_s")
+    return d
+
+
+def test_explore_prefilters_on_the_card_one_scan_a_chunk(cuda, monkeypatch):
+    """Stream's main path, `explore(prefilter=True)` with the fitness on
+    the card (resnet18 on MC:Hetero, tile 32, GA pop 24 for 16
+    generations): one `wavefront_scan` launch a prefilter chunk and no
+    other kernel, each chunk's scores bit-equal to the plain loop's, and
+    the result the exact engine's schedule of its allocation, which the
+    race detector passes."""
+    from repro_torch.api.session import default_session
+    from repro_torch.configs.paper_workloads import resnet18
+    from repro_torch.core import explore
+    w, acc, gran = resnet18(), mc_hetero(), ("tile", 32, 1)
+    chunks = _counted_chunks(monkeypatch)
+    before = _launches()
+    res = explore(w, acc, granularity=gran, pop_size=24, generations=16,
+                  seed=0, prefilter=True, device=cuda)
+    used = _launches(before)
+    assert res.ga.prefilter_screened > 0 and chunks
+    assert used == dict(dict.fromkeys(used, 0), wavefront_scan=len(chunks))
+    _hold_chunks_against_plain(chunks)
+    final = default_session().engine(w, acc, gran).schedule(
+        res.allocation, "latency", validate=True)
+    assert (res.latency_cc, res.energy_pj) == (final.latency_cc,
+                                              final.energy_pj)
+    assert np.isfinite(res.latency_cc) and res.latency_cc > 0
+
+
+def test_prefiltered_sweep_on_the_card(cuda, monkeypatch, tmp_path):
+    """The DSE runtime with the prefilter on the card: a traced serial
+    `ExplorationSession.run` of 8 points of the paper's grid (squeezenet
+    and mobilenetv2 on SC:TPU and MC:Hetero, layer by layer and tile 32,
+    GA pop 10 for 6 generations) into a store. One `wavefront_scan`
+    launch a prefilter chunk and no other kernel, each chunk bit-equal to
+    the plain loop, every record the exact engine's schedule of its
+    allocation; the grid with the prefilter on the plain loop stores the
+    same records and tracer counters; a fresh session over the store
+    schedules nothing and launches nothing."""
+    from repro_torch.obs import Tracer
+    space = DesignSpace(workloads=["squeezenet", "mobilenetv2"],
+                        archs=[catalog.sc_tpu, catalog.mc_hetero],
+                        granularities=["layer", ("tile", 32, 1)],
+                        ga=GAConfig(pop_size=10, generations=6, seed=0))
+    n, store = len(space), str(tmp_path / "grid")
+    chunks = _counted_chunks(monkeypatch)
+    tracer = Tracer()
+    before = _launches()
+    sweep = ExplorationSession(cache_dir=store, prefilter=True, tracer=tracer,
+                               device=cuda).run(space)
+    used = _launches(before)
+    assert (len(sweep), sweep.n_failed, sweep.n_scheduled) == (n, 0, n)
+    assert chunks and used == dict(dict.fromkeys(used, 0),
+                                   wavefront_scan=len(chunks))
+    _hold_chunks_against_plain(chunks)
+    for point, rec in zip(space, sweep.records):
+        assert rec.key == point.content_key()
+        exact = ExplorationSession().evaluate_allocation(
+            point.workload, point.arch, rec.allocation,
+            granularity=point.granularity, priority=point.priority)
+        assert (rec.latency_cc, rec.energy_pj) == (
+            float(exact.latency_cc), float(exact.energy_pj))
+        assert np.isfinite(rec.edp) and rec.edp > 0
+
+    plain_tracer = Tracer()
+    with monkeypatch.context() as m:
+        m.setattr(vectorized, "get_batched_fitness", functools.partial(
+            vectorized.get_batched_fitness, use_kernel=False))
+        before = _launches()
+        plain = ExplorationSession(cache_dir=str(tmp_path / "plain"),
+                                   prefilter=True, tracer=plain_tracer,
+                                   device=cuda).run(space)
+        assert not any(_launches(before).values())
+    assert [_content(r) for r in plain.records] == \
+        [_content(r) for r in sweep.records]
+    assert plain_tracer.snapshot()["counters"] == \
+        tracer.snapshot()["counters"]
+
+    before = _launches()
+    replay = ExplorationSession(cache_dir=store, prefilter=True,
+                                device=cuda).run(space)
+    assert (replay.n_from_store, replay.n_scheduled) == (n, 0)
+    assert not any(_launches(before).values())
+    assert [_content(r) for r in replay.records] == \
+        [_content(r) for r in sweep.records]
+
+
+def test_process_executor_beside_the_card_equals_serial(cuda):
+    """Sweep workers spawned from a process that holds a CUDA context
+    store what the serial run stores (the workers run unfiltered, as the
+    reference's do)."""
+    torch.zeros(1, device=cuda)
+    space = DesignSpace(workloads=["squeezenet"], archs=[mc_hetero],
+                        granularities=["layer", ("tile", 32, 1)],
+                        ga=GAConfig(pop_size=8, generations=5))
+    serial = ExplorationSession().run(space)
+    pooled = ExplorationSession().run(space, executor="process",
+                                      max_workers=2)
+    assert serial.n_failed == pooled.n_failed == 0
+    assert [_content(r) for r in pooled.records] == \
+        [_content(r) for r in serial.records]
+
+
+def test_trace_export_with_the_fitness_on_the_card_is_deterministic(
+        cuda, tmp_path):
+    """`trace_export --device cuda` (the bottleneck report's lower bound
+    from the batched fitness on the card) writes the same bytes twice."""
+    from repro_torch.tools import trace_export
+    blobs = []
+    for sub in ("a", "b"):
+        paths = trace_export.export_all(str(tmp_path / sub), device="cuda")
+        blobs.append({name: open(p, "rb").read()
+                      for name, p in paths.items()})
+    assert blobs[0] == blobs[1]
 
 
 # ---- the serving kernels: rmsnorm, decode attention, flash attention -------
@@ -377,17 +549,21 @@ STATE_TOL = dict(rtol=ref.STATE_TOL, atol=ref.STATE_TOL)
 
 
 # (B, S, H, P, N, chunk): every shape takes the tiled kernel but N = 4 in
-# bf16 (8 bytes a row), which takes the old one; L, P and N off the tensor
-# cores' 16 and P off the slab of 32 (zero-padded tiles) included
+# bf16 (8 bytes a row) and the shapes of SSD_OLD, which take the old one;
+# L, P and N off the tensor cores' 16 and P off the slab of 32 (zero-padded
+# tiles) included
+SSD_OLD = [(1, 128, 2, 16, 8, 128), (2, 128, 8, 64, 64, 128),
+           (2, 64, 3, 16, 80, 32), (1, 48, 2, 6, 8, 16)]  # L, N > 64; P = 6
+
+
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [
     (1, 32, 1, 8, 4, 8), (2, 64, 3, 16, 8, 16), (1, 128, 2, 32, 16, 32),
     (4, 128, 80, 64, 64, 64), (2, 64, 5, 64, 64, 64), (1, 48, 2, 8, 8, 8),
-    (2, 72, 3, 48, 24, 24), (1, 80, 2, 80, 40, 40)])
+    (2, 72, 3, 48, 24, 24), (1, 80, 2, 80, 40, 40)] + SSD_OLD)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("init", [False, True])
-@pytest.mark.parametrize("kernel", [None, "old"])
 def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype,
-                                       init, kernel):
+                                       init):
     x = _on(cuda, normal((B, S, H, P), 0), dtype)
     dt = torch.nn.functional.softplus(_on(cuda, normal((B, S, H), 1),
                                           "float32"))
@@ -395,14 +571,12 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype,
     Bm = _on(cuda, normal((B, S, N), 3), dtype)
     Cm = _on(cuda, normal((B, S, N), 4), dtype)
     s0 = _on(cuda, normal((B, H, P, N), 5), "float32") if init else None
-    route = ssd_module.variant(x, Bm, Cm, chunk)
-    assert route == ("old" if N == 4 and dtype == "bfloat16" else "tiled")
-    if route == "old":
-        with pytest.raises(ValueError):      # not the tiled kernel's call
-            ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, kernel="tiled")
+    old = (B, S, H, P, N, chunk) in SSD_OLD or (N == 4 and
+                                                 dtype == "bfloat16")
+    assert ssd_module.variant(x, Bm, Cm, chunk) == ("old" if old
+                                                    else "tiled")
     before = ssd_scan.launches
-    y, s = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=s0,
-                    kernel=kernel)
+    y, s = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=s0)
     assert ssd_scan.launches == before + 1 and y.dtype == x.dtype
     want_y, want_s = ssd_scan_ref(x, dt, A, Bm, Cm, s0)
     torch.testing.assert_close(y.float(), want_y.float(), **SCAN_TOL[dtype])
@@ -427,18 +601,22 @@ def test_ssd_scan_kernel_takes_the_models_strided_slices(cuda):
 
 
 # (B, S, H, K, V, chunk): L off the tensor cores' 16, K off 16 and V off the
-# slab of 32 (zero-padded tiles) included
+# slab of 32 (zero-padded tiles) included; the shapes of RWKV_OLD take the
+# old kernel
+RWKV_OLD = [(1, 48, 2, 16, 16, 12), (2, 128, 4, 64, 64, 64),
+            (1, 64, 2, 96, 32, 16), (2, 40, 3, 16, 6, 8)]  # L, K, V
+
+
 @pytest.mark.parametrize("B,S,H,K,V,chunk", [
     (1, 32, 1, 8, 8, 8), (2, 64, 3, 16, 16, 16), (1, 96, 2, 32, 16, 32),
     (4, 128, 40, 64, 64, 32), (2, 64, 3, 64, 32, 32), (2, 72, 3, 64, 48, 24),
-    (1, 64, 2, 40, 80, 16)])
+    (1, 64, 2, 40, 80, 16)] + RWKV_OLD)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("init", [False, True])
 @pytest.mark.parametrize("logw_case", ["some_below", "at_clip",
                                        "all_below"])
-@pytest.mark.parametrize("kernel", [None, "old"])
 def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, K, V, chunk, dtype,
-                                         init, logw_case, kernel):
+                                         init, logw_case):
     r = _on(cuda, normal((B, S, H, K), 0), dtype)
     k = _on(cuda, normal((B, S, H, K), 1), dtype)
     v = _on(cuda, normal((B, S, H, V), 2), dtype)
@@ -450,10 +628,11 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, K, V, chunk, dtype,
         logw.fill_(-6.0 if logw_case == "at_clip" else -40.0)
     u = _on(cuda, normal((H, K), 4, 0.1), "float32")
     s0 = _on(cuda, normal((B, H, K, V), 5), "float32") if init else None
-    assert rwkv_module.variant(r, k, v, logw, chunk) == "tiled"
+    old = (B, S, H, K, V, chunk) in RWKV_OLD
+    assert rwkv_module.variant(r, k, v, logw, chunk) == ("old" if old
+                                                         else "tiled")
     before = rwkv6_scan.launches
-    o, s = rwkv6_scan(r, k, v, logw, u, chunk=chunk, initial_state=s0,
-                      kernel=kernel)
+    o, s = rwkv6_scan(r, k, v, logw, u, chunk=chunk, initial_state=s0)
     assert rwkv6_scan.launches == before + 1 and o.dtype == r.dtype
     assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
     want_o, want_s = rwkv6_scan_ref(r, k, v, logw, u, s0)
@@ -723,27 +902,24 @@ def test_kernel_captured_in_a_cuda_graph_replays_as_the_eager_call(cuda,
         assert torch.equal(got, want)
 
 
-_KERNELS = {"rmsnorm": rmsnorm_fwd, "flash_attention": flash_attention_fwd,
-            "decode_attention": decode_attention_fwd, "ssd_scan": ssd_scan,
-            "rwkv6_scan": rwkv6_scan, "moe_gemm": moe_gemm}
-
-
 def _kernel_and_plain_logits(cfg, params, toks, device):
-    """Prefill and one decode step on the kernel path and on the plain path,
-    with each kernel's launches checked: {path: (prefill, decode) logits}.
-    Whisper gets seeded frame embeddings, and its decode step the encoder
-    output of the same path."""
+    """Prefill of `toks` (B, S) into caches of S + 8 positions and one
+    decode step, on the kernel path and on the plain path, with each
+    kernel's launches checked: {path: (prefill, decode) logits}. Whisper
+    gets seeded frame embeddings, and its decode step the encoder output of
+    the same path."""
+    B, S = toks.shape
     pre_n, step_n = zoo.kernel_launches(cfg)
     batch = {"tokens": toks}
     if cfg.family == "encdec":
         batch["enc_embeds"] = _on(device, normal(
-            (2, cfg.enc["enc_len"], cfg.d_model), 14), "float32").to(
+            (B, cfg.enc["enc_len"], cfg.d_model), 14), "float32").to(
                 cfg.dtype)
     out = {}
     for name, kernels in (("kernels", None), ("plain", False)):
-        caches = init_from_specs(zoo.build_cache_specs(cfg, 2, 40), 0,
+        caches = init_from_specs(zoo.build_cache_specs(cfg, B, S + 8), 0,
                                  device=device)
-        before = {k: fn.launches for k, fn in _KERNELS.items()}
+        before = _launches()
         pre, caches = zoo.prefill(cfg, params, batch, caches,
                                   kernels=kernels)
         enc = None
@@ -751,9 +927,9 @@ def _kernel_and_plain_logits(cfg, params, toks, device):
             enc = encdec.encode(cfg, params, batch["enc_embeds"],
                                 kernels=False)
         dec, _ = zoo.decode_step(cfg, params, pre.argmax(-1)[:, None],
-                                 caches, 32, enc_out=enc, kernels=kernels)
-        used = {k: fn.launches - before[k] for k, fn in _KERNELS.items()}
-        want = {k: pre_n.get(k, 0) + step_n.get(k, 0) for k in _KERNELS}
+                                 caches, S, enc_out=enc, kernels=kernels)
+        used = _launches(before)
+        want = {k: pre_n.get(k, 0) + step_n.get(k, 0) for k in used}
         assert used == (want if kernels is None else dict.fromkeys(used, 0))
         out[name] = (pre, dec)
     return out
@@ -783,6 +959,110 @@ def test_reduced_decoder_kernel_path_matches_plain_path(cuda, arch):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+def _record_routes(monkeypatch):
+    """{kernel: [variant, ...]}: the variant of every call each wrapper
+    makes while the test runs, as its `variant` chooses it."""
+    routes = {}
+    for name, module in (("ssd_scan", ssd_module), ("rwkv6_scan", rwkv_module),
+                         ("flash_attention", flash_module),
+                         ("decode_attention", decode_module),
+                         ("moe_gemm", moe_gemm_module)):
+        def recorded(*args, _choose=module.variant, _name=name, **kw):
+            route = _choose(*args, **kw)
+            routes.setdefault(_name, []).append(route)
+            return route
+        monkeypatch.setattr(module, "variant", recorded)
+    return routes
+
+
+# each decoder at full width, at the depth of its float32 gate: full depth,
+# or 2 layers for the two whose float32 weights do not fit one card
+F32_DEPTH = {"llama3.2-3b": None, "zamba2-2.7b": None, "rwkv6-3b": None,
+             "deepseek-moe-16b": None, "whisper-large-v3": None,
+             "qwen2-vl-72b": 2, "deepseek-v2-236b": 2}
+
+
+@pytest.mark.parametrize("arch", sorted(F32_DEPTH))
+def test_kernel_path_matches_plain_path_in_float32_at_full_width(
+        cuda, monkeypatch, arch):
+    """Each decoder at full width and its F32_DEPTH (deepseek-moe-16b's
+    float32 weights take 66 GB), seeded float32 weights, TF32 off, 4
+    prompts of 128 tokens: the kernel path's prefill and first decode
+    logits within 1e-3 of the plain path's, each kernel's launches as
+    `zoo.kernel_launches` counts them, every scan on its tiled kernel;
+    whisper's uncached forward too (encode, then the decoder stack, where
+    cross attention reads the encoder output). The two paths sum float32
+    in other orders: 6.1e-6 (deepseek-moe-16b) to 1.2e-4 (rwkv6-3b)
+    measured on an H100, logits up to 4.8. The reduced configs of the test
+    above do not show how that grows with depth."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    torch.cuda.empty_cache()
+    cfg = ARCHS[arch]
+    if F32_DEPTH[arch]:
+        cfg = dataclasses.replace(cfg, n_layers=F32_DEPTH[arch])
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    params = init_from_specs(zoo.build_param_specs(cfg),
+                             torch.Generator(device=cuda).manual_seed(1),
+                             device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        1, cfg.vocab, size=(4, 128)), device=cuda)
+    routes = _record_routes(monkeypatch)
+    out = _kernel_and_plain_logits(cfg, params, toks, cuda)
+    if cfg.family == "encdec":
+        frames = _on(cuda, normal((4, cfg.enc["enc_len"], cfg.d_model), 14),
+                     "float32")
+        for name, kernels in (("kernels", None), ("plain", False)):
+            enc = encdec.encode(cfg, params, frames, kernels=kernels)
+            hidden, _ = encdec.decode_stack(cfg, params, toks, enc,
+                                            kernels=kernels)
+            out[name] += (logits_f32(hidden, params["embed"]),)
+    for got, want in zip(out["kernels"], out["plain"]):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 1e-3
+    for scan in ("ssd_scan", "rwkv6_scan"):
+        assert set(routes.get(scan, ["tiled"])) == {"tiled"}, routes[scan]
+
+
+# each decoder served at full width, deep enough for every block kind:
+# zamba2-2.7b's shared attention block follows its 6th Mamba2 layer, and
+# the deepseek models' first layer is dense
+SERVE_DEPTH = {"llama3.2-3b": 2, "zamba2-2.7b": 6, "rwkv6-3b": 2,
+               "deepseek-moe-16b": 2, "qwen2-vl-72b": 2,
+               "deepseek-v2-236b": 2}
+# the variant every bf16 serving call of each kernel runs
+FAST = {"ssd_scan": "tiled", "rwkv6_scan": "tiled", "flash_attention": "mma",
+        "decode_attention": "split", "moe_gemm": "mma"}
+
+
+@pytest.mark.parametrize("arch", sorted(SERVE_DEPTH))
+def test_serve_engine_at_full_width_runs_the_fast_kernels(cuda, monkeypatch,
+                                                          arch):
+    """`ServeEngine.serve` of 8 requests through 4 slots (two waves of a
+    prefill of 128-token prompts and 3 decode steps) at full width in
+    bf16, seeded weights: every request done with 4 tokens in the
+    vocabulary, each kernel's launches as `zoo.kernel_launches` counts
+    them, and every call of every kernel its fast variant (FAST)."""
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=SERVE_DEPTH[arch])
+    params = init_from_specs(zoo.build_param_specs(cfg),
+                             torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    prompts = np.random.default_rng(5).integers(1, cfg.vocab, size=(8, 128))
+    eng = ServeEngine(cfg, params, batch_slots=4, prompt_len=128,
+                      max_len=168, device=cuda)
+    routes = _record_routes(monkeypatch)
+    before = _launches()
+    reqs = eng.serve([Request(prompt=p, max_new_tokens=4) for p in prompts])
+    used = _launches(before)
+    pre_n, step_n = zoo.kernel_launches(cfg)
+    assert used == {k: 2 * pre_n.get(k, 0) + 6 * step_n.get(k, 0)
+                    for k in used}
+    assert all(r.done and len(r.out_tokens) == 4 and
+               all(0 <= t < cfg.vocab for t in r.out_tokens) for r in reqs)
+    assert routes and all(set(v) == {FAST[k]} for k, v in routes.items()), \
+        {k: sorted(set(v)) for k, v in routes.items()}
+
+
 # ---------------------------------------------------------------------------
 # training on the card: the plain layers, no kernel, the CPU's numbers
 # ---------------------------------------------------------------------------
@@ -808,7 +1088,6 @@ def _held(a, b, rtol, b1=0.9, eps=1e-8):
     h = m / (1 - b1): a near-zero h can turn u over (float32 sums in
     another order), so the parameters are held to lr |u_a - u_b| from the
     held m, plus `rtol` of their largest magnitude."""
-    from repro_torch.models.module import tree_leaves
     pa, sa, ma = a
     pb, sb, mb = b
     for k in ("loss", "grad_norm", "lr"):
@@ -864,19 +1143,15 @@ def test_train_step_launches_no_kernel(cuda):
     """The training path is the plain layers (the kernels have no
     backward): a bf16 step on the card launches none of the port's
     kernels, and its loss and every updated leaf are finite."""
-    from repro_torch.models.module import tree_leaves
     from repro_torch.train.train_step import TrainStepConfig
     cfg = reduce_config(ARCHS["deepseek-moe-16b"])
     params = init_from_specs(zoo.build_param_specs(cfg), 0, device=cuda)
     toks = torch.as_tensor(normal((2, 64), 3) > 0, device=cuda).long() + 5
-    every = dict(_KERNELS, serialize_prefix=serialize_prefix,
-                 wavefront_scan=wavefront_scan)
-    before = {k: fn.launches for k, fn in every.items()}
+    before = _launches()
     p, state, m = _train_once(cfg, params, {"tokens": toks, "labels": toks},
                               TrainStepConfig(grad_compress=True))
     torch.cuda.synchronize()
-    assert {k: fn.launches - before[k] for k, fn in every.items()} == \
-        dict.fromkeys(every, 0)
+    assert _launches(before) == dict.fromkeys(_ALL_KERNELS, 0)
     assert bool(torch.isfinite(m["loss"])) and float(m["loss"]) > 0
     assert all(bool(torch.isfinite(t).all())
                for t in tree_leaves({"p": p, **state}))
@@ -900,6 +1175,26 @@ def test_logits_f32_gradient_on_the_card(cuda):
     assert gx.dtype == gw.dtype == torch.bfloat16
     assert _rel(gx, fx) <= 1e-2 and _rel(gw, fw) <= 1e-2, \
         (_rel(gx, fx), _rel(gw, fw))
+
+
+def test_launch_train_on_the_card_runs_the_plain_layers(cuda, capsys):
+    """`python -m repro_torch.launch.train --device cuda` (a llama of 2
+    layers of width 64): the CPU run's log, ending "done", finite
+    parameters on the card, and no launch of a kernel of the port (the
+    kernels have no backward)."""
+    from repro_torch.launch import train
+    before = _launches()
+    params = train.main(["--smoke", "--layers", "2", "--d-model", "64",
+                         "--seq", "32", "--batch", "4", "--steps", "3",
+                         "--device", "cuda"])
+    torch.cuda.synchronize()
+    assert not any(_launches(before).values())
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("arch=llama3.2-3b-smoke device=cuda")
+    assert [line.split()[1] for line in out[1:-1]] == ["0", "2"]
+    assert out[-1] == "done"
+    assert all(p.is_cuda and bool(torch.isfinite(p).all())
+               for p in tree_leaves(params))
 
 
 # ---- the plain blocked attention on tensor cores ----------------------------
@@ -975,3 +1270,132 @@ def test_blocked_attention_gradient_on_the_card(cuda, name):
     rel = [_rel(a, b) for a, b in zip(grads, want)]
     assert all(a.dtype == torch.bfloat16 for a in grads)
     assert max(rel) <= 1e-2, rel
+
+
+# ---- the multi-device layer on one rank, and the dry run, on the card -----
+
+def test_one_nccl_rank_serves_as_the_engine_without_a_mesh(cuda, monkeypatch,
+                                                           tmp_path):
+    """The multi-device layer over a one-rank NCCL process group (a file://
+    store) under `make_host_mesh()`, a (1, 1) mesh on the card:
+    `ServeEngine(mesh=)` serves the mesh-free engine's tokens with each
+    kernel's launches, holding the caller's parameters; split-KV decode
+    gives the plain decode's float32 logits; `moe_ffn(mesh=)` equals the
+    mesh-free call bit for bit through three tensor-core `moe_gemm`
+    launches; the production mesh refuses one rank."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.models.layers import moe_ffn, moe_specs
+    from repro_torch.sharding.rules import local_specs
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(device_type="cuda")
+        assert mesh.shape == {"data": 1, "model": 1}
+        assert mesh.device_mesh is not None
+        with pytest.raises(ValueError):
+            make_production_mesh(device_type="cuda")
+
+        cfg = reduce_config(ARCHS["llama3.2-3b"])
+        params = init_from_specs(zoo.build_param_specs(cfg), 0, device=cuda)
+        prompts = np.random.default_rng(5).integers(1, cfg.vocab,
+                                                    size=(8, 32))
+        served = {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            eng = ServeEngine(cfg, params, mesh=m, batch_slots=4,
+                              prompt_len=32, max_len=40, device=cuda)
+            assert eng.params["embed"] is params["embed"]
+            before = _launches()
+            reqs = eng.serve([Request(prompt=p, max_new_tokens=4)
+                              for p in prompts])
+            served[name] = ([r.out_tokens for r in reqs], _launches(before))
+        assert served["mesh"] == served["plain"]
+        assert any(served["mesh"][1].values())
+
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        params = init_from_specs(zoo.build_param_specs(f32), 1, device=cuda)
+        logits = {}
+        for kv in (True, False):
+            caches = init_from_specs(local_specs(
+                zoo.build_cache_specs(f32, 4, 40),
+                zoo.cache_shardings(f32, 4, 40, mesh, kv)), 0, device=cuda)
+            lg, caches = zoo.prefill(f32, params, {"tokens": torch.as_tensor(
+                prompts[:4], device=cuda)}, caches, mesh=mesh,
+                kv_seq_shard=kv)
+            steps = [lg]
+            for t in range(4):
+                lg, caches = zoo.decode_step(
+                    f32, params, steps[-1].argmax(-1)[:, None], caches,
+                    32 + t, mesh=mesh, kv_seq_shard=kv)
+                steps.append(lg)
+            logits[kv] = steps
+        for a, b in zip(logits[True], logits[False]):
+            assert float((a - b).abs().max()) <= 1e-3
+
+        moe_cfg = reduce_config(ARCHS["deepseek-moe-16b"])
+        mo = moe_cfg.moe
+        moe_params = init_from_specs(
+            moe_specs(moe_cfg.d_model, mo["d_ff_expert"], mo["n_routed"],
+                      mo["n_shared"], moe_cfg.dtype), 2, device=cuda)
+        x = _on(cuda, normal((4, 32, moe_cfg.d_model), 3), "bfloat16")
+        kw = dict(top_k=mo["top_k"],
+                  capacity_factor=mo.get("capacity_factor", 1.25))
+        routes = _record_routes(monkeypatch)
+        before = moe_gemm.launches
+        got, aux = moe_ffn(moe_params, x, mesh=mesh, kernels=True, **kw)
+        assert moe_gemm.launches - before == 3
+        assert routes["moe_gemm"] == ["mma"] * 3
+        want, want_aux = moe_ffn(moe_params, x, kernels=True, **kw)
+        assert torch.equal(got, want) and float(aux) == float(want_aux)
+        plain, _ = moe_ffn(moe_params, x, mesh=mesh, kernels=False, **kw)
+        assert float((got.float() - plain.float()).abs().max()) <= \
+            2e-2 * max(1.0, float(plain.float().abs().max()))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dry_run_counts_the_train_step_it_predicts_on_the_card(cuda,
+                                                               monkeypatch):
+    """The dry run (fake tensors, an abstract (1, 1) mesh) against the same
+    train step on the card: llama3.2-3b at full width and 2 layers, B 2 x
+    S 512, full remat. Its FLOPs within 1% of `dryrun.flop_counter`'s over
+    the real step, its argument bytes within 1% of the memory the
+    parameters, the AdamW state and the batch take on the card, and no
+    launch of a kernel of the port on either side."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding.rules import Mesh
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainStepConfig,
+                                              init_train_state,
+                                              make_train_step)
+    arch, shape = "llama3.2-3b", ShapeConfig("train_b2_s512", "train", 512, 2)
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=2)
+    monkeypatch.setitem(ARCHS, arch, cfg)
+    monkeypatch.setitem(SHAPES, shape.name, shape)
+    one = Mesh.abstract((1, 1), ("data", "model"), device_type="cuda")
+    before = _launches()
+    _, dry = dryrun.lower_cell(arch, shape.name, multi_pod=False, mesh=one,
+                               device="cuda")
+    step_cfg = TrainStepConfig(remat=True, opt=AdamWConfig())
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = init_from_specs(zoo.build_param_specs(cfg), 0, device=cuda)
+    state = init_train_state(cfg, params, step_cfg)
+    data = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
+                                  global_batch=shape.global_batch))
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in data.global_batch(0).items()}
+    torch.cuda.synchronize()
+    card_bytes = torch.cuda.memory_allocated() - base
+    counter = dryrun.flop_counter()
+    with counter:
+        _, _, m = make_train_step(cfg, one, step_cfg)(params, state, batch)
+    assert np.isfinite(float(m["loss"]))
+    assert not any(_launches(before).values())
+    flops = dry["roofline"]["flops"] / counter.get_total_flops()
+    args = dry["memory"]["argument_size_bytes"] / card_bytes
+    assert abs(flops - 1) <= 0.01 and abs(args - 1) <= 0.01, (flops, args)

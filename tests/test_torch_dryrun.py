@@ -109,6 +109,22 @@ def test_full_width_step_counts_remat_recompute(monkeypatch):
     assert r["collective_bytes"] == 0.0
 
 
+def test_flop_counter_counts_bmm_with_out_dtype():
+    """The card's bf16 products with float32 sums (`bmm.dtype`, which a
+    cell on "cuda" dispatches through `layers.matmul_f32`) count as `bmm`
+    does; torch's own formula raises on them."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        a = torch.empty(3, 4, 8, dtype=torch.bfloat16)
+        b = torch.empty(3, 8, 5, dtype=torch.bfloat16)
+        counter = dryrun.flop_counter()
+        with counter:
+            torch.bmm(a, b, out_dtype=torch.float32)
+            torch.bmm(a, b)
+    assert counter.get_total_flops() == 2 * (2 * 3 * 4 * 8 * 5)
+
+
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_every_config_runs_every_shape(monkeypatch, arch):
     """Each config, reduced, through every shape's kind on an abstract
