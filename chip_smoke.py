@@ -22,7 +22,10 @@ non-zero and prints no `ok` line:
              whisper's non-causal shapes (T 1500, D 64), moe_gemm also at
              deepseek-v2's 160 experts; the two scans at every shape of
              their grids through the kernel `variant` chooses, rwkv6 with
-             logw at and far below the clip;
+             logw at and far below the clip; mla_attention (MLA's prefill,
+             qk 128 + 64 and v 128, no `pallas_call` behind it) at a
+             card's layer of dsv2-tp4-prefill, beside the model's plain
+             path;
 5. fitness — wavefront_scan alone at the prefilter chunk of a cell (256
              genomes of resnet18 on MC:Hetero and of squeezenet on
              MC:HomTPU x4, tile 32) against its plain version, with its
@@ -696,6 +699,72 @@ def check_flash_attention(dev) -> dict:
             "shape": [SLOTS, 24, 8, PROMPT, 128, "causal"]}
 
 
+def check_mla_attention(dev) -> dict:
+    """MLA's prefill attention kernel against the model's plain path
+    (`cat`-built per-head keys, `blocked_attention`) at the YaRN scale,
+    and timed beside it at a card's layer of dsv2-tp4-prefill: B 8 x S
+    4096, 32 heads, qk 128 + 64, v 128."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.mla_attention import mla_attention_fwd, variant
+    from repro_torch.kernels.ref import mla_attention_ref
+    from repro_torch.models.attention import mla_temperature
+    from repro_torch.models.layers import blocked_attention
+    scale = mla_temperature({"type": "yarn", "factor": 40,
+                             "mscale_all_dim": 0.707}) / math.sqrt(192)
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def inputs(B, S, H):
+        return tuple(torch.randn(shape, generator=gen, device=dev).bfloat16()
+                     for shape in ((B, S, H, 192), (B, S, H, 128),
+                                   (B, S, 64), (B, S, H, 128)))
+
+    def keys(kn, kr):
+        B, T, H, _ = kn.shape
+        return torch.cat([kn, kr[:, :, None].expand(B, T, H, 64)], -1)
+
+    errs = {}
+    for B, S, H in ((2, 1, 32), (2, 65, 32), (2, 1000, 32), (1, 2048, 32)):
+        q, kn, kr, v = inputs(B, S, H)
+        assert variant(q, kn, kr, v) == "mma"
+        got = mla_attention_fwd(q, kn, kr, v, scale=scale)
+        errs[f"{B}x{S}x{H}-plain-path"] = held(
+            got, blocked_attention(q, keys(kn, kr), v, scale=scale),
+            "bfloat16")
+        if S <= 1000:
+            errs[f"{B}x{S}x{H}-twin"] = held(
+                got, mla_attention_ref(q, kn, kr, v, scale=scale), "bfloat16")
+    B, S, H = 8, 4096, 32
+    q, kn, kr, v = inputs(B, S, H)
+    kf = keys(kn, kr)
+    flops = 2 * B * H * S * (S + 1) // 2 * (192 + 128)
+    n_bytes = 2 * (q.numel() + kn.numel() + kr.numel() + 2 * v.numel())
+    sdpa = (q.transpose(1, 2), kf.transpose(1, 2), v.transpose(1, 2))
+
+    def library():
+        return F.scaled_dot_product_attention(*sdpa, is_causal=True,
+                                              scale=scale)
+
+    try:                    # a backend that takes qk 192 != v 128, if any
+        library()
+    except RuntimeError:
+        library = None
+    t = timed(lambda: mla_attention_fwd(q, kn, kr, v, scale=scale),
+              lambda: blocked_attention(q, keys(kn, kr), v, scale=scale),
+              library, "mla_attention_kernel_mma",
+              (n_bytes, flops, BF16_OPS_PER_S), plain_iters=5, iters=20)
+    assert t["device_ms"] is not None, "the kernel never ran"
+    got = mla_attention_fwd(q, kn, kr, v, scale=scale)
+    t["max_abs_err"] = held(got, blocked_attention(q, kf, v, scale=scale),
+                            "bfloat16")
+    t["variant"] = "mma"
+    t["tflops"] = flops / (t["device_ms"] * 1e-3) / 1e12
+    return {"errors": errs, "main": t,
+            "shape": [B, S, H, 192, 128, "causal", "yarn scale"]}
+
+
 def ssd_inputs(rng, B, S, H, P, N, dtype, dev, init):
     import torch
     x = tensor(rng, (B, S, H, P), dtype, dev)
@@ -1002,7 +1071,8 @@ def main() -> int:
                "flash_attention": check_flash_attention(dev),
                "ssd_scan": check_ssd_scan(dev),
                "rwkv6_scan": check_rwkv6_scan(dev),
-               "moe_gemm": check_moe_gemm(dev)}
+               "moe_gemm": check_moe_gemm(dev),
+               "mla_attention": check_mla_attention(dev)}
     for name, res in serving.items():
         line = {"phase": "kernel", "name": name,
                 "tolerance": res.get("tolerance", SERVE_TOL),
@@ -1054,7 +1124,8 @@ def main() -> int:
             ("flash_attention", "src/repro/kernels/flash_attention.py:69"),
             ("ssd_scan", "src/repro/kernels/ssd_scan.py:60"),
             ("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:58"),
-            ("moe_gemm", "src/repro/kernels/moe_gemm.py:39")):
+            ("moe_gemm", "src/repro/kernels/moe_gemm.py:39"),
+            ("mla_attention", "port-only (no pallas_call)")):
         m = serving[name]["main"]
         row = {
             "name": name, "route": "cuda",
@@ -1066,7 +1137,7 @@ def main() -> int:
             "library_ms": m["library_ms"],
             "library_device_ms": m["library_device_ms"],
             "shape": serving[name]["shape"]}
-        for extra in ("variant", "max_ulps"):
+        for extra in ("variant", "max_ulps", "tflops"):
             if extra in m:
                 row[extra] = m[extra]
         rows.append(row)

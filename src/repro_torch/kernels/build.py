@@ -11,7 +11,7 @@ source, the shared headers (`csrc/*.cuh`) and the interpreter's ABI so an
 edited source is rebuilt, and imported.  Nothing here runs on import: the
 CPU tests import every module on machines without `nvcc`.
 
-The launch path that all eight wrappers share is kept cheap, because the
+The launch path that all nine wrappers share is kept cheap, because the
 serving steps are bound by the host: `cuda_index` finds the tensors' device
 from integers, `stream_of` reads the raw current stream, the module's
 `launch` converts the arguments in C, and each launcher takes the device

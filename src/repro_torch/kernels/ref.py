@@ -305,6 +305,29 @@ def flash_attention_top_left_ref(q, k, v, causal: bool = True):
     return _softmax_attention(q, k, v, causal, 0)
 
 
+def mla_attention_ref(q, kn, kr, v, *, scale: float):
+    """MLA's causal prefill attention: q (B, S, H, Dn + Dr) against keys
+    whose first Dn columns are kn (B, T, H, Dn) and whose last Dr are the
+    shared kr (B, T, Dr), values v (B, T, H, Dv) -> (B, S, H, Dv) in q's
+    type.  Naive softmax in float32 with the scores times `scale`, the
+    causal mask aligned top-left, p rounded to v's type before the P V
+    product and the sum normalised after it, as the reference's blocked
+    attention does (`repro/models/layers.py:156-158`).  The MLA wrapper's
+    version for CPU tensors and the card tests' oracle: its (B, H, S, T)
+    scores are no model path's (the model's plain MLA prefill is
+    `blocked_attention` on per-head keys)."""
+    S, T, Dn = q.shape[1], kn.shape[1], kn.shape[-1]
+    qf = q.float()
+    s = (torch.einsum("bshd,bthd->bhst", qf[..., :Dn], kn.float())
+         + torch.einsum("bshd,btd->bhst", qf[..., Dn:], kr.float())) * scale
+    mask = torch.ones(S, T, dtype=torch.bool, device=q.device).tril()
+    s = torch.where(mask, s, NEG)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1).clamp_min(1e-30).transpose(1, 2)[..., None]
+    out = torch.einsum("bhst,bthd->bshd", p.to(v.dtype).float(), v.float())
+    return (out / l).to(q.dtype)
+
+
 def decode_attention_ref(q, k, v, cur_len):
     """q: (B,Hq,D); k,v: (B,Hkv,T,D); valid positions < cur_len."""
     B, Hq, D = q.shape

@@ -31,11 +31,14 @@ are whole, so every rank computes the same latent and rope key and fills
 the same latent cache; the absorbed decode runs on the local heads.
 
 `kernels=True` runs GQA's attention through the flash and decode attention
-kernels and MLA's `kv_norm` and `q_norm` through the rmsnorm kernel.  MLA's prefill
-attention (q and k of D = qk_nope + qk_rope, v of D = v_dim) and its
-absorbed decode stay plain PyTorch on every device: in the reference they
-reach no Pallas kernel, and the flash kernel takes only k and v of one
-shape, as the TPU kernel does.
+kernels, MLA's `kv_norm` and `q_norm` through the rmsnorm kernel, and MLA's
+prefill attention (q and k of qk_nope + qk_rope columns, v of v_dim)
+through `kernels.mla_attention`, which reads the shared rope key once a
+tile in place of building per-head keys, where its `variant` takes the
+call ("mma": bfloat16 on the card at the widths it is compiled for); every
+other MLA prefill, the CPU's among them, runs the plain blocked attention
+on per-head keys.  MLA's absorbed decode stays plain PyTorch on every
+device, as it reaches no Pallas kernel in the reference.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import mla_attention as mla_kernel
 from repro_torch.models.layers import (NEG_INF, apply_mrope, apply_rope,
                                        blocked_attention, decode_attention,
                                        decode_attention_kv_sharded, rmsnorm,
@@ -259,8 +263,9 @@ def mla_attention(params, x, positions, *, n_heads, qk_nope, qk_rope, v_dim,
     scales the scores by `mla_temperature`, in prefill and in the
     absorbed decode alike.
 
-    `kernels` runs only `kv_norm` and `q_norm` through the rmsnorm kernel
-    (see the module's docstring)."""
+    `kernels` runs `kv_norm` and `q_norm` through the rmsnorm kernel and
+    the prefill attention through `kernels.mla_attention` where that
+    kernel takes it (see the module's docstring)."""
     B, S, D = x.shape
     if tp is not None:
         x = copy_to(x, tp, "model")
@@ -305,17 +310,21 @@ def mla_attention(params, x, positions, *, n_heads, qk_nope, qk_rope, v_dim,
         out = heads.reshape(B, 1, n_heads * v_dim).to(x.dtype)
         return _mla_out(out, params["wo"], tp), cache
 
-    # prefill: decompress per-head keys/values, blocked attention (plain:
-    # k and v differ in D)
+    # prefill: decompress per-head keys/values; the kernel takes the rope
+    # key once for all heads, the plain path per-head keys
     kn = (ckv @ params["wk_b"]).reshape(B, S, n_heads, qk_nope)
     vv = (ckv @ params["wv_b"]).reshape(B, S, n_heads, v_dim)
-    kr_b = kr[:, :, None, :].expand(B, S, n_heads, qk_rope)
-    qf = torch.cat([qn, qr], dim=-1)
-    kf = torch.cat([kn, kr_b], dim=-1)
-    out = blocked_attention(qf, kf, vv, causal=True, block_q=block_q,
-                            block_kv=block_kv, kernels=False,
-                            scale=None if temp == 1.0 else
-                            temp / math.sqrt(qk_nope + qk_rope))
+    scale = temp / math.sqrt(qk_nope + qk_rope)
+    if kernels and q.is_cuda and \
+            mla_kernel.variant(q, kn, kr, vv) == "mma":
+        q[..., qk_nope:] = qr           # q's rows hold qn and the turned qr
+        out = mla_kernel.mla_attention_fwd(q, kn, kr, vv, scale=scale)
+    else:
+        kr_b = kr[:, :, None, :].expand(B, S, n_heads, qk_rope)
+        qf = torch.cat([qn, qr], dim=-1)
+        kf = torch.cat([kn, kr_b], dim=-1)
+        out = blocked_attention(qf, kf, vv, causal=True, block_q=block_q,
+                                block_kv=block_kv, scale=scale)
     if cache is not None:  # prefill fills the latent cache
         cache["ckv"][:, :S] = ckv
         cache["kr"][:, :S] = kr

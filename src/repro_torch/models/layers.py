@@ -248,8 +248,8 @@ def blocked_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
 
     q: (B, S, Hq, D); k, v: (B, T, Hkv, D) with Hq % Hkv == 0.  (The
     reference's additive `bias` argument has no caller there and is left
-    out.)  `scale`: the scores' factor, 1 / sqrt(D) when None (MLA's YaRN
-    temperature; the flash kernel, which MLA does not take, ignores it).
+    out.)  `scale`: the scores' factor, 1 / sqrt(D) when None; the flash
+    kernel (`kernels=True`) scales by 1 / sqrt(D) and refuses any other.
 
     Both products run through `attention_dot` on head-major operands: keys
     and values (B Hkv, T, D) once a call, a q block's G heads flattened into
@@ -262,6 +262,9 @@ def blocked_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
     (`attn.block_pairs`, `attn.block_pairs_skipped`).
     """
     if kernels:
+        if scale is not None:
+            raise ValueError("the flash kernel scales by 1 / sqrt(D): no "
+                             f"scale {scale}")
         out = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal)
         return out.transpose(1, 2)

@@ -40,6 +40,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.kernels import mla_attention as mla_kernel
 from repro_torch.models import attention as attn
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
@@ -190,9 +191,13 @@ def kernel_launches(cfg: ArchConfig, mesh=None) -> tuple[dict, dict]:
         norms = 3 * n + 1 - split_norms
         return ({"rmsnorm": norms, "rwkv6_scan": n}, {"rmsnorm": norms})
     moe = 3 * (n - cfg.moe["first_dense_layers"]) if cfg.ffn == "moe" else 0
-    if cfg.mixer == "mla":          # ln1, kv_norm[, q_norm], ln2; plain
-        norms = (4 if cfg.mla.get("q_lora") else 3) * n + 1    # attention
-        return ({"rmsnorm": norms, "moe_gemm": moe},
+    if cfg.mixer == "mla":          # ln1, kv_norm[, q_norm], ln2
+        norms = (4 if cfg.mla.get("q_lora") else 3) * n + 1
+        m = cfg.mla                     # the prefill attention's kernel
+        widths = (m["qk_nope"], m["qk_rope"], m["v_dim"])
+        mla = n if cfg.dtype == torch.bfloat16 and \
+            widths in mla_kernel.WIDTHS else 0
+        return ({"rmsnorm": norms, "moe_gemm": moe, "mla_attention": mla},
                 {"rmsnorm": norms, "moe_gemm": moe})
     return ({"rmsnorm": 2 * n + 1, "flash_attention": n, "moe_gemm": moe},
             {"rmsnorm": 2 * n + 1, "decode_attention": n, "moe_gemm": moe})

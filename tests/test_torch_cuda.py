@@ -26,15 +26,17 @@ from repro_torch.hw.catalog import mc_hetero, mc_hom_tpu_chip4
 from repro_torch.kernels import ref
 from repro_torch.kernels import decode_attention as decode_module
 from repro_torch.kernels import flash_attention as flash_module
+from repro_torch.kernels import mla_attention as mla_module
 from repro_torch.kernels import moe_gemm as moe_gemm_module
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.mla_attention import mla_attention_fwd
 from repro_torch.kernels import rmsnorm as rmsnorm_module
 from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.ref import (decode_attention_ref,
                                      flash_attention_ref,
                                      flash_attention_top_left_ref,
-                                     moe_gemm_ref, rmsnorm_ref,
+                                     mla_attention_ref, moe_gemm_ref, rmsnorm_ref,
                                      rwkv6_scan_ref, serialize_prefix_ref,
                                      ssd_scan_ref)
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
@@ -44,6 +46,7 @@ from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels import wavefront as wfm
 from repro_torch.kernels.wavefront import serialize_prefix, wavefront_scan
+from repro_torch.models import attention as attn_module
 from repro_torch.models import encdec, layers, zoo
 from repro_torch.models.attention import mla_temperature
 from repro_torch.models.module import init_from_specs, tree_leaves
@@ -54,7 +57,8 @@ pytestmark = pytest.mark.cuda
 
 _KERNELS = {"rmsnorm": rmsnorm_fwd, "flash_attention": flash_attention_fwd,
             "decode_attention": decode_attention_fwd, "ssd_scan": ssd_scan,
-            "rwkv6_scan": rwkv6_scan, "moe_gemm": moe_gemm}
+            "rwkv6_scan": rwkv6_scan, "moe_gemm": moe_gemm,
+            "mla_attention": mla_attention_fwd}
 _ALL_KERNELS = dict(_KERNELS, serialize_prefix=serialize_prefix,
                     wavefront_scan=wavefront_scan)
 
@@ -835,7 +839,7 @@ def test_scan_and_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.parametrize("kernel", ["rmsnorm", "moe_gemm", "flash_attention",
                                     "decode_attention", "ssd_scan",
-                                    "rwkv6_scan"])
+                                    "rwkv6_scan", "mla_attention"])
 def test_kernel_captured_in_a_cuda_graph_replays_as_the_eager_call(cuda,
                                                                    kernel):
     if kernel == "rmsnorm":
@@ -853,6 +857,12 @@ def test_kernel_captured_in_a_cuda_graph_replays_as_the_eager_call(cuda,
         fn, launches = (lambda: flash_attention_fwd(x, y, z)), \
             flash_attention_fwd
         assert flash_module.variant(x, y, z) == "mma"
+    elif kernel == "mla_attention":   # deepseek-v2's widths, a card's heads
+        x, y, w, z = _mla_inputs(cuda, 2, 256, 32, MLA_WIDTHS)
+        fn, launches = (lambda: mla_attention_fwd(x, y, w, z,
+                                                  scale=MLA_SCALE)), \
+            mla_attention_fwd
+        assert mla_module.variant(x, y, w, z) == "mma"
     elif kernel == "decode_attention":   # a cluster launch
         x = _on(cuda, normal((4, 24, 128), 20), "bfloat16")
         y, z = _kv(cuda, "model", 4, 8, 168, 128, "bfloat16", 21)
@@ -966,7 +976,8 @@ def _record_routes(monkeypatch):
     for name, module in (("ssd_scan", ssd_module), ("rwkv6_scan", rwkv_module),
                          ("flash_attention", flash_module),
                          ("decode_attention", decode_module),
-                         ("moe_gemm", moe_gemm_module)):
+                         ("moe_gemm", moe_gemm_module),
+                         ("mla_attention", mla_module)):
         def recorded(*args, _choose=module.variant, _name=name, **kw):
             route = _choose(*args, **kw)
             routes.setdefault(_name, []).append(route)
@@ -1031,7 +1042,7 @@ SERVE_DEPTH = {"llama3.2-3b": 2, "zamba2-2.7b": 6, "rwkv6-3b": 2,
                "deepseek-v2-236b": 2}
 # the variant every bf16 serving call of each kernel runs
 FAST = {"ssd_scan": "tiled", "rwkv6_scan": "tiled", "flash_attention": "mma",
-        "decode_attention": "split", "moe_gemm": "mma"}
+        "decode_attention": "split", "moe_gemm": "mma", "mla_attention": "mma"}
 
 
 @pytest.mark.parametrize("arch", sorted(SERVE_DEPTH))
@@ -1270,6 +1281,172 @@ def test_blocked_attention_gradient_on_the_card(cuda, name):
     rel = [_rel(a, b) for a, b in zip(grads, want)]
     assert all(a.dtype == torch.bfloat16 for a in grads)
     assert max(rel) <= 1e-2, rel
+
+
+# ---- MLA's prefill attention kernel ---------------------------------------
+
+MLA_WIDTHS = (128, 64, 128)          # deepseek-v2's qk_nope, qk_rope, v_dim
+MLA_SCALE = BLOCKED["mla"][-1]       # its YaRN temperature over sqrt(192)
+
+
+def _mla_inputs(cuda, B, S, H, widths, seed=0):
+    """q (B, S, H, qk_nope + qk_rope), kn (B, S, H, qk_nope), the shared
+    kr (B, S, qk_rope) and v (B, S, H, v_dim): standard normals in bf16,
+    drawn on the card from a seeded generator (the cell's shape is 0.5 G
+    values)."""
+    dn, dr, dv = widths
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=cuda).bfloat16()
+                 for shape in ((B, S, H, dn + dr), (B, S, H, dn), (B, S, dr),
+                               (B, S, H, dv)))
+
+
+def _mla_plain(q, kn, kr, v, scale):
+    """The model's plain MLA prefill attention: per-head keys `cat`-built,
+    the blocked attention in blocks of 512 x 1024, bf16 products."""
+    B, T, H, _ = kn.shape
+    kf = torch.cat([kn, kr[:, :, None].expand(B, T, H, kr.shape[-1])], -1)
+    return layers.blocked_attention(q, kf, v, causal=True, scale=scale)
+
+
+@pytest.mark.parametrize("B,S,H,widths", [
+    (8, 4096, 32, MLA_WIDTHS),     # a card's layer of dsv2-tp4-prefill
+    *[(2, S, 32, MLA_WIDTHS) for S in (1, 63, 64, 65, 1000)],
+    (2, 65, 4, (32, 16, 32)), (3, 200, 4, (32, 16, 32))])
+def test_mla_attention_kernel_matches_the_plain_path(cuda, B, S, H, widths):
+    """The kernel against the model's plain path in bf16 at the same scale
+    (the YaRN temperature at deepseek-v2's widths), and against the plain
+    twin where its (B, H, S, S) float32 scores fit: both round p to bf16,
+    each relative to its own running max, so they differ by that rounding
+    and the output's."""
+    q, kn, kr, v = _mla_inputs(cuda, B, S, H, widths, seed=S)
+    assert mla_module.variant(q, kn, kr, v) == "mma"
+    scale = MLA_SCALE if widths == MLA_WIDTHS else \
+        1 / math.sqrt(widths[0] + widths[1])
+    before = mla_attention_fwd.launches
+    got = mla_attention_fwd(q, kn, kr, v, scale=scale)
+    assert mla_attention_fwd.launches == before + 1
+    want = _mla_plain(q, kn, kr, v, scale)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _close(got, want, "bfloat16")
+    if S <= 1000:
+        _close(got, mla_attention_ref(q, kn, kr, v, scale=scale),
+               "bfloat16")
+
+
+@pytest.mark.parametrize("B,H", [(65535, 1), (1, 65535)])
+def test_mla_attention_kernel_at_the_grids_limits(cuda, B, H):
+    """65535 batches or heads, the grid's limits on its y and z axes;
+    one more is refused before any launch."""
+    q, kn, kr, v = _mla_inputs(cuda, B, 3, H, (32, 16, 32))
+    got = mla_attention_fwd(q, kn, kr, v, scale=0.2)
+    _close(got, mla_attention_ref(q, kn, kr, v, scale=0.2), "bfloat16")
+    q, kn, kr, v = _mla_inputs(cuda, B + (H == 1), 1, H + (B == 1),
+                               (32, 16, 32))
+    before = mla_attention_fwd.launches
+    with pytest.raises(ValueError, match="65535"):
+        mla_attention_fwd(q, kn, kr, v, scale=0.2)
+    assert mla_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize("case", ["float32", "widths", "q-misaligned"])
+def test_mla_attention_wrapper_refuses_calls_off_its_grid(cuda, case):
+    """A CUDA call the kernel does not take (float32, widths it is not
+    compiled for, q off the 16-byte grid) raises before any launch, and
+    never falls back to the plain version's (B, H, S, T) float32 scores:
+    the model sends such a call to the blocked attention."""
+    widths = (64, 32, 64) if case == "widths" else MLA_WIDTHS
+    q, kn, kr, v = _mla_inputs(cuda, 2, 65, 4, widths)
+    if case == "float32":
+        q, kn, kr, v = (t.float() for t in (q, kn, kr, v))
+    elif case == "q-misaligned":
+        q = _at_offset(q, 1)
+    assert mla_module.variant(q, kn, kr, v) == "plain"
+    before = mla_attention_fwd.launches
+    with pytest.raises(ValueError, match="blocked attention"):
+        mla_attention_fwd(q, kn, kr, v, scale=0.1)
+    assert mla_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize("dtype,widths", [("float32", MLA_WIDTHS),
+                                          ("bfloat16", (16, 8, 16))])
+def test_mla_prefill_off_the_kernels_grid_takes_the_blocked_path(
+        cuda, monkeypatch, dtype, widths):
+    """`kernels=True` on the card for a prefill the MLA kernel does not
+    take (float32, or widths it is not compiled for): the model runs the
+    blocked attention's plain branch on per-head keys, O(S) memory as on
+    the plain path, launches no MLA kernel, and gives the plain path's
+    output within the type's tolerance (the norms run the rmsnorm
+    kernel)."""
+    dn, dr, dv = widths
+    kw = dict(n_heads=4, qk_nope=dn, qk_rope=dr, v_dim=dv, kv_lora=64)
+    specs = attn_module.mla_specs(128, 4, dn, dr, dv, 64,
+                                  getattr(torch, dtype))
+    params = init_from_specs(specs, 0, device=cuda)
+    x = _on(cuda, normal((2, 130, 128), 3), dtype)
+    pos = torch.arange(130, device=cuda)[None].expand(2, 130)
+    calls = []
+
+    def blocked(*args, **kwargs):
+        calls.append(kwargs.get("kernels", False))
+        return layers.blocked_attention(*args, **kwargs)
+
+    monkeypatch.setattr(attn_module, "blocked_attention", blocked)
+    before = mla_attention_fwd.launches
+    got, _ = attn_module.mla_attention(params, x, pos, kernels=True, **kw)
+    assert mla_attention_fwd.launches == before and calls == [False]
+    want, _ = attn_module.mla_attention(params, x, pos, **kw)
+    _close(got, want, dtype)
+
+
+# sha256 of flash_attention_kernel_mma's bf16 outputs at seeded inputs
+# (numpy normals, the model's transposed views), read on an H100 from the
+# kernel as it was before MLA's prefill kernel came beside it: that kernel
+# and its function stay as they were, bit for bit
+FLASH_DIGESTS = {
+    "llama": ((4, 128, 128, 24, 8, 128, True), "c4a6d101b8716fc7"),
+    "dsmoe": ((16, 2048, 2048, 16, 16, 128, True), "a53b3f981bced6e0"),
+    "zamba-d80": ((4, 128, 128, 32, 32, 80, True), "745e7e6aa0f3cf8d"),
+    "whisper-cross": ((4, 128, 1500, 20, 20, 64, False), "8bdba3532be32187"),
+    "s-not-t": ((2, 128, 168, 24, 8, 128, True), "82bf97d9143147f4")}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_DIGESTS))
+def test_flash_attention_mma_outputs_are_unchanged(cuda, name):
+    import hashlib
+    (B, S, T, Hq, Hkv, D, causal), digest = FLASH_DIGESTS[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    q, k, v = (torch.as_tensor(rng.standard_normal(s).astype(np.float32),
+                               device=cuda).bfloat16().transpose(1, 2)
+               for s in ((B, S, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D)))
+    assert flash_module.variant(q, k, v) == "mma"
+    out = flash_attention_fwd(q, k, v, causal=causal)
+    got = hashlib.sha256(out.contiguous().view(torch.int16).cpu().numpy()
+                         .tobytes()).hexdigest()
+    assert got[:16] == digest
+
+
+def test_mla_prefill_counts_its_tiles_while_a_profiler_records(cuda):
+    """A prefill of the reduced deepseek-v2 (2 layers, S 130: 6 of 9 tiles
+    of 64 x 64) on the kernel path under torch.profiler counts the
+    kernel's tiles and no block pair of the plain attention."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs.realtime import DEVICE_TRACER
+    cfg = reduce_config(ARCHS["deepseek-v2-236b"])
+    params = init_from_specs(zoo.build_param_specs(cfg), 0, device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        1, cfg.vocab, size=(2, 130)), device=cuda)
+    caches = init_from_specs(zoo.build_cache_specs(cfg, 2, 138), 0,
+                             device=cuda)
+    before = dict(DEVICE_TRACER.snapshot()["counters"])
+    with profile(activities=[ProfilerActivity.CPU]):
+        zoo.prefill(cfg, params, {"tokens": toks}, caches)
+    after = DEVICE_TRACER.snapshot()["counters"]
+    grew = {k: after.get(k, 0.0) - before.get(k, 0.0)
+            for k in ("attn.mla_tiles", "attn.mla_tiles_skipped",
+                      "attn.block_pairs")}
+    assert grew == {"attn.mla_tiles": 12.0, "attn.mla_tiles_skipped": 6.0,
+                    "attn.block_pairs": 0.0}
 
 
 # ---- the multi-device layer on one rank, and the dry run, on the card -----

@@ -22,7 +22,7 @@ from repro_torch.kernels import rwkv6_scan as rwkv
 from repro_torch.kernels import ssd_scan as ssd
 
 WRAPPERS = ["wavefront", "rmsnorm", "decode_attention", "flash_attention",
-            "ssd_scan", "rwkv6_scan", "moe_gemm"]
+            "ssd_scan", "rwkv6_scan", "moe_gemm", "mla_attention"]
 
 
 def _at_offset(shape, dtype, offset):
@@ -291,7 +291,8 @@ def test_tiled_scan_constants_agree_with_the_sources(name, mirror):
         assert "kLogwMin = -6.0f" in src and mirror.LOGW_MIN == -6.0
 
 
-@pytest.mark.parametrize("name", ["moe_gemm", "flash_attention"])
+@pytest.mark.parametrize("name", ["moe_gemm", "flash_attention",
+                                  "mla_attention"])
 def test_the_tensor_core_helpers_live_in_one_header(name):
     src = (build.CSRC / f"{name}.cu").read_text()
     assert '#include "mma.cuh"' in src

@@ -11,7 +11,8 @@ bf16 kernel tolerance).  Then the twin of the reference's
 `test_prefill_then_decode_matches_full_forward` (`tests/test_models.py`:
 rtol = atol = 2e-3), which holds the latent cache, and the kernel path's
 two rules: `kv_norm` reaches the rmsnorm wrapper as a contiguous tensor, and
-MLA's attention never reaches the flash attention wrapper.
+MLA's attention on the CPU reaches neither the flash attention wrapper nor
+its own prefill kernel's.
 """
 import dataclasses
 
@@ -27,6 +28,7 @@ from repro.models.module import init_from_specs as ref_init
 
 from repro_torch.configs import ARCHS, reduce_config
 from repro_torch.interop import params_from_numpy
+from repro_torch.kernels import mla_attention as mla_kernel
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
@@ -168,8 +170,9 @@ def test_kernel_path_norms_a_contiguous_latent_and_never_calls_flash(
     """On the kernel path the rmsnorm wrapper gets the latent as a
     contiguous copy of the strided `kv[..., :kv_lora]` view (the wrapper
     refuses a strided one on the card), and MLA's attention stays plain:
-    the flash attention wrapper is never reached (it takes only k and v of
-    one shape)."""
+    neither the flash attention wrapper (it takes only k and v of one
+    shape) nor MLA's own prefill wrapper (it takes only CUDA tensors from
+    the model) is reached."""
     normed = []
 
     def rmsnorm_fwd(x, scale, eps=1e-5):
@@ -182,6 +185,7 @@ def test_kernel_path_norms_a_contiguous_latent_and_never_calls_flash(
     monkeypatch.setattr(layers, "rmsnorm_fwd", rmsnorm_fwd)
     monkeypatch.setattr(layers, "flash_attention_fwd", refuse)
     monkeypatch.setattr(layers, "decode_attention_fwd", refuse)
+    monkeypatch.setattr(mla_kernel, "mla_attention_fwd", refuse)
     _, p = _carried("float32")
     _, x = _inputs("float32", n_tokens, 5)
     _, pos = _positions(n_tokens, 0 if n_tokens > 1 else 4)

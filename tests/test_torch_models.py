@@ -341,6 +341,7 @@ def test_kv_seq_shard_on_one_rank_mesh_equals_unsharded_step(dtype, tol):
     ("qwen2-vl-72b", "decode_attention", 0, 80),
     ("deepseek-v2-236b", "rmsnorm", 181, 181),
     ("deepseek-v2-236b", "moe_gemm", 177, 177),
+    ("deepseek-v2-236b", "mla_attention", 60, 0),
     ("deepseek-v2-236b", "flash_attention", 0, 0),
     ("deepseek-v2-236b", "decode_attention", 0, 0)])
 def test_kernel_launches_per_pass_of_the_served_models(name, kernel,
@@ -351,7 +352,8 @@ def test_kernel_launches_per_pass_of_the_served_models(name, kernel,
     # layers and 32 decoder layers of self and cross attention (layernorm
     # throughout), a decode step's cross attention at S = 1 on the flash
     # kernel; deepseek-v2's three norms a layer (ln1, MLA's kv_norm, ln2)
-    # and plain MLA attention, its expert products in 59 MoE layers
+    # and MLA's prefill attention on its own kernel (its absorbed decode
+    # plain), its expert products in 59 MoE layers
     pre, step = zoo.kernel_launches(ARCHS[name])
     assert (pre.get(kernel, 0), step.get(kernel, 0)) == (per_prefill,
                                                          per_step)
